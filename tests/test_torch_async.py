@@ -198,7 +198,9 @@ def test_trajectory_p1_matches_reference(ref, ref_runs):
 
 _P2_SCRIPT = textwrap.dedent("""
     import os, sys
-    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
+    # one Eigen thread: the subprocess runs beside the rest of the suite
+    os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=2 "
+                               "--xla_cpu_multi_thread_eigen=false")
     import jax, numpy as np
     from repro.configs import get_config
     from repro.data.pipeline import SyntheticLMDataset
