@@ -1,4 +1,4 @@
-"""End-to-end training driver of the port (counterpart of the ``--sync
+"""End-to-end trainer of the port (counterpart of the ``--sync
 exact|async`` subset of ``repro.launch.train``).
 
     python -m repro_torch.launch.train --arch qwen3-1.7b --sync async \\
@@ -7,7 +7,7 @@ exact|async`` subset of ``repro.launch.train``).
 
 ``--workers N`` runs N data-parallel workers in this process (each takes a
 contiguous batch shard).  ``--device`` defaults to ``cuda``; without a card
-the driver raises unless ``--device cpu`` is given — it never carries on on
+the trainer raises unless ``--device cpu`` is given — it never carries on on
 the CPU by itself.
 """
 from __future__ import annotations
