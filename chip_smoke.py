@@ -146,16 +146,26 @@ def check_topk_ef(torch, dev, gen, records):
 
 
 def _deposit_case(torch, dev, gen, r, k, slots, weights):
+    """A (3, 1, r) ring and S messages as the path makes them: each top-k
+    payload is ``topk_ef``'s output on a fresh gradient (picks in index
+    order within each group), each sign map a fair coin."""
+    from repro_torch.kernels.topk_ef.kernel import topk_ef
     s = len(slots)
     acc = 0.01 * torch.randn((3, 1, r), generator=gen, device=dev)
-    vals = torch.randn((s, 1, k), generator=gen, device=dev)
-    idx = torch.stack([torch.randperm(r, generator=gen, device=dev)[:k]
-                       for _ in range(s)]).to(torch.int32).reshape(s, 1, k)
+    vals, idx = [], []
+    for _ in range(s):
+        g = torch.randn((1, r), generator=gen, device=dev)
+        v, i, _ = topk_ef(g, None, k, out_err=g)
+        vals.append(v)
+        idx.append(i)
+        del g
+    vals = torch.stack(vals)
+    idx = torch.stack(idx)
     pos = torch.rand((s, 1, r), generator=gen, device=dev) < 0.5
     means = torch.randn((s, 1, 2), generator=gen, device=dev)
     slots_t = torch.tensor(slots, dtype=torch.int32, device=dev)
     w_t = torch.tensor(weights, dtype=torch.float32, device=dev)
-    return acc, vals, idx.contiguous(), pos, means, slots_t, w_t
+    return acc, vals, idx, pos, means, slots_t, w_t
 
 
 def check_deposits(torch, dev, gen, records):
@@ -208,10 +218,10 @@ def check_deposits(torch, dev, gen, records):
         max_abs_err=errs[topk_cr_deposit.name], ms=ms, plain_ms=plain,
         bound_ms=bound_ms(nbytes), bound_by="bytes", library_ms=lib,
         shape=[3, 1, r], k=k, messages=2)
-    log(f"time topk_cr_deposit (3, 1, {r}) S=2 k={k}: kernel {ms:.3f} ms, "
-        f"plain {plain:.3f} ms, index_put_(accumulate=True) {lib:.3f} ms "
-        f"(products precomputed), bound {bound_ms(nbytes):.3f} ms "
-        f"({nbytes} bytes)")
+    log(f"time topk_cr_deposit (3, 1, {r}) S=2 k={k} (topk_ef payloads): "
+        f"kernel {ms:.3f} ms, plain {plain:.3f} ms, "
+        f"index_put_(accumulate=True) {lib:.3f} ms (products precomputed), "
+        f"bound {bound_ms(nbytes):.3f} ms ({nbytes} bytes)")
     del flat, prods
     ms = time_ms(torch, lambda: onebit_cr_deposit(acc, pos, means, slots, w),
                  warmup=2, iters=5)

@@ -86,10 +86,10 @@ __global__ void init_kernel(uint32_t* hist, uint32_t* state, int64_t rows,
   }
 }
 
-// Pass 0: w = err + g into new_err, histogram of key bits 30..20.
-__global__ void hist0_kernel(const float* __restrict__ g,
-                             const float* __restrict__ err,
-                             float* __restrict__ w_out,
+// Pass 0: w = err + g into new_err, histogram of key bits 30..20.  No
+// __restrict__ on g, err and w_out: new_err may alias err (or g), and each
+// element is read and then written by the same thread.
+__global__ void hist0_kernel(const float* g, const float* err, float* w_out,
                              uint32_t* __restrict__ hist, int64_t R) {
   __shared__ uint32_t sh[kBins0];
   for (int i = threadIdx.x; i < kBins0; i += blockDim.x) sh[i] = 0u;
