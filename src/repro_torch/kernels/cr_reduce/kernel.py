@@ -18,8 +18,8 @@ with ``num_stages=1``, so that no load of a later message is hoisted above
 the store of an earlier one to the same slot; and with a block barrier
 after each message, because the warp that stores an entry need not be the
 one that loads it for the next message (without it, a message sharing its
-slot with an earlier one read stale entries now and then — tens to
-hundreds of a 16 M-entry slot — on the card).
+slot with an earlier one read stale entries now and then on the card, at
+large sizes only).
 
 Both wrappers check device, dtype, shape and contiguity, update ``acc`` in
 place (the reference donates it), launch on the current stream and count

@@ -79,8 +79,8 @@ def test_topk_ef_kernel_residual_in_place_and_no_residual(cuda):
 
 
 def _deposit_inputs(cuda, m, r, k, seed=0):
-    """Three messages into a 3-slot ring; large rows (the one-bit kernel
-    once read stale ring lines only at 16 M entries and up) included."""
+    """Three messages into a 3-slot ring; a large row is included, as a
+    cross-warp race in the one-bit kernel once showed at large sizes only."""
     rng = np.random.default_rng(seed)
     acc = rng.standard_normal((3, m, r)).astype(np.float32)
     vals = rng.standard_normal((3, m, k)).astype(np.float32)
