@@ -308,6 +308,9 @@ def check_small_path(torch, dev):
 # ---------------------------------------------------------------------------
 
 def run_path(torch, kernels, compressor: str, steps: int):
+    """Drive the main path through the trainer's entry point, with the
+    launch counters zeroed just before; returns the counts after it.  The
+    peak memory must stay within 90% of the card (with ``track_gap`` on)."""
     from repro_torch.launch import train
 
     argv = ["--arch", "qwen3-1.7b", "--sync", "async", "--compressor",
@@ -330,10 +333,11 @@ def run_path(torch, kernels, compressor: str, steps: int):
         f"included); peak memory {peak} bytes ({peak / total:.3f} of "
         f"{total}); launches {json.dumps(counts)}")
     require(len(history) == steps, "missing steps")
+    require(peak <= 0.9 * total, "peak memory above 90% of the card")
     for row in history:
         require(math.isfinite(row["loss"]) and
                 math.isfinite(row["stale_gap2"]), f"non-finite step {row}")
-    return history, counts, peak
+    return counts
 
 
 def profile_step(torch) -> None:
@@ -427,11 +431,7 @@ def main() -> int:
     check_deposits(torch, dev, gen, records)
     check_small_path(torch, dev)
 
-    hist, counts, _ = run_path(torch, kernels, "topk", 4)
-    for row in hist:
-        log(f"  step {row['step']} loss {row['loss']:.6f} stale_gap2 "
-            f"{row['stale_gap2']:.6g} mean_tau {row['mean_tau']:.2f} "
-            f"step_s {row['step_s']:.4f}")
+    counts = run_path(torch, kernels, "topk", 4)
     require(counts["topk_ef"] == 13 * 2 * 4,
             f"topk_ef launches {counts['topk_ef']} != 104")
     require(counts["topk_cr_deposit"] == 13 * 4,
@@ -439,17 +439,13 @@ def main() -> int:
     records["topk_ef"]["launches"] = counts["topk_ef"]
     records["topk_cr_deposit"]["launches"] = counts["topk_cr_deposit"]
 
-    hist, counts, _ = run_path(torch, kernels, "onebit", 2)
-    for row in hist:
-        log(f"  step {row['step']} loss {row['loss']:.6f} stale_gap2 "
-            f"{row['stale_gap2']:.6g} mean_tau {row['mean_tau']:.2f} "
-            f"step_s {row['step_s']:.4f}")
+    counts = run_path(torch, kernels, "onebit", 2)
     require(counts["onebit_cr_deposit"] == 13 * 2,
             f"onebit_cr_deposit launches {counts['onebit_cr_deposit']} != 26")
     records["onebit_cr_deposit"]["launches"] = counts["onebit_cr_deposit"]
     profile_step(torch)
 
-    keys =("name", "route", "source", "replaces", "launches", "max_abs_err",
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: records[kern.name][k] for k in keys}
                                   for kern in kernels]}), flush=True)
