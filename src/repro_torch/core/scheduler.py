@@ -54,13 +54,6 @@ def leaf_rows_geometry(shape, spec):
     return m, r, perm, tshape
 
 
-def _writeback(err, new_err_rows, perm, tshape):
-    """Store row-space residuals into ``err`` unless they are its view."""
-    if new_err_rows.data_ptr() != err.data_ptr():
-        err.copy_(_from_rows(new_err_rows, perm, tshape))
-    return err
-
-
 def ef_compress_leaf(g, err, spec, method: str, topk_ratio: float = 1 / 64):
     """One local compression round of a leaf, densified: returns
     ``(payload, new_err)`` with ``payload = Q(err + g)`` in the leaf's
@@ -85,17 +78,16 @@ def ef_compress_leaf(g, err, spec, method: str, topk_ratio: float = 1 / 64):
 
 
 def ef_compress_leaf_compact(g, err, spec, method: str,
-                             topk_ratio: float = 1 / 64, *,
-                             inplace: bool = False):
+                             topk_ratio: float = 1 / 64):
     """One local compression round kept in *wire form*.
 
     Returns ``(payload, new_err)``: ``{"vals" (M, k) f32, "idx" (M, k)
     i32}`` for top-k or ``{"pos" (M, R) bool, "means" (M, 2) f32}`` for
     one-bit, and the residual in the leaf's shape.  ``err=None`` means no
-    error feedback.  With ``inplace`` the residual is written into ``err``
-    (the top-k kernel writes it straight into the row view) and ``err`` is
-    returned.  Densified, the payload equals :func:`ef_compress_leaf`'s
-    bit for bit.
+    error feedback; otherwise the residual is written into ``err``, which
+    is returned (when the rows are a view of ``err``, as at M = 1, the
+    compressor writes it there directly).  Densified, the payload equals
+    :func:`ef_compress_leaf`'s bit for bit.
     """
     m, r, perm, tshape = leaf_rows_geometry(tuple(g.shape), spec)
     if g.numel() == 0:
@@ -105,10 +97,10 @@ def ef_compress_leaf_compact(g, err, spec, method: str,
         else:
             payload = {"pos": g.new_zeros((m, r), dtype=torch.bool),
                        "means": g.new_zeros((m, 2), dtype=torch.float32)}
-        return payload, g.float()
+        return payload, (err if err is not None else g.float())
     rows_g, _, _ = _to_rows(g, spec)
     rows_e = _to_rows(err, spec)[0] if err is not None else None
-    out = rows_e if (inplace and rows_e is not None
+    out = rows_e if (rows_e is not None
                      and rows_e.data_ptr() == err.data_ptr()
                      and rows_e.is_contiguous()) else None
     if method == "topk":
@@ -121,6 +113,8 @@ def ef_compress_leaf_compact(g, err, spec, method: str,
         payload = {"pos": pos, "means": means}
     else:
         raise ValueError(f"unknown compressor {method!r}")
-    if inplace and err is not None:
-        return payload, _writeback(err, err_rows, perm, tshape)
-    return payload, _from_rows(err_rows, perm, tshape)
+    if err is None:
+        return payload, _from_rows(err_rows, perm, tshape)
+    if err_rows is not out:
+        err.copy_(_from_rows(err_rows, perm, tshape))
+    return payload, err

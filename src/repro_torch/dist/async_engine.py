@@ -144,16 +144,15 @@ class AsyncTrainStep:
     ``track_gap`` is off), ``mean_tau`` and ``nonfinite``."""
 
     def __init__(self, cfg: ArchConfig, opt, acfg: AsyncConfig,
-                 n_workers: int, specs, grad_accum: int = 1):
+                 n_workers: int, specs):
         self.cfg, self.opt, self.acfg = cfg, opt, acfg
-        self.n, self.specs, self.grad_accum = n_workers, specs, grad_accum
+        self.n, self.specs = n_workers, specs
         self._geoms = None
 
     def worker_grads(self, params, batch: dict):
         """Gradient half: yield ``(loss, grads)`` per worker, in order."""
         for shard in shard_batch(batch, self.n):
-            loss, _parts, grads = mean_grads(self.cfg, params, shard,
-                                             self.grad_accum)
+            loss, _parts, grads = mean_grads(self.cfg, params, shard)
             yield loss, grads
 
     def __call__(self, params, opt_state, state: dict, batch: dict):
@@ -197,8 +196,7 @@ class AsyncTrainStep:
                 err = errs[i][w] if acfg.has_err else None
                 if acfg.fused:
                     payload, _ = ef_compress_leaf_compact(
-                        g, err, flat_s[i], acfg.compressor, acfg.topk_ratio,
-                        inplace=True)
+                        g, err, flat_s[i], acfg.compressor, acfg.topk_ratio)
                     payloads[i].append(payload)
                 else:
                     stale[i] = self._densified_leaf(
@@ -293,6 +291,6 @@ class AsyncTrainStep:
 
 
 def make_async_train_step(cfg: ArchConfig, opt, acfg: AsyncConfig,
-                          n_workers: int, specs, grad_accum: int = 1):
+                          n_workers: int, specs):
     """The bounded-staleness step over ``n_workers`` in-process workers."""
-    return AsyncTrainStep(cfg, opt, acfg, n_workers, specs, grad_accum)
+    return AsyncTrainStep(cfg, opt, acfg, n_workers, specs)

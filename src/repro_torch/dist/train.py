@@ -31,10 +31,11 @@ def loss_fn(cfg: ArchConfig, params, batch: dict, layer_sinks=None):
     return loss, {"ce": ce.detach(), "aux_loss": aux.detach()}
 
 
-def _loss_and_grads(cfg: ArchConfig, params, batch: dict):
-    """One backward pass: ``(loss, parts, grads tree)``.  The layer leaves'
-    gradients land in fresh sinks (one buffer per stacked leaf, filled a
-    layer at a time); the other leaves' come from ``backward``."""
+def mean_grads(cfg: ArchConfig, params, batch: dict):
+    """Loss + mean gradient tree in one backward pass: ``(loss, parts,
+    grads)``.  The layer leaves' gradients land in fresh sinks (one buffer
+    per stacked leaf, filled a layer at a time); the other leaves' come
+    from ``backward``."""
     flat_p, td = T.flatten(params)
     sinks = T.tree_map(torch.zeros_like, params["layers"])
     for p in flat_p:
@@ -54,29 +55,6 @@ def _loss_and_grads(cfg: ArchConfig, params, batch: dict):
                          else torch.zeros_like(p))
             p.grad = None
     return loss.detach(), parts, T.unflatten(td, grads)
-
-
-def mean_grads(cfg: ArchConfig, params, batch: dict, grad_accum: int = 1):
-    """Loss + mean gradient tree, optionally accumulated over
-    ``grad_accum`` microbatches (summed, then scaled by ``1/grad_accum``)."""
-    if grad_accum <= 1:
-        return _loss_and_grads(cfg, params, batch)
-    b = next(iter(batch.values())).shape[0] // grad_accum
-    loss_acc, parts_acc, g_acc = None, None, None
-    for i in range(grad_accum):
-        mb = {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
-        loss, parts, g = _loss_and_grads(cfg, params, mb)
-        g = T.leaves(g)
-        if g_acc is None:
-            loss_acc, parts_acc, g_acc = loss, parts, g
-        else:
-            loss_acc = loss_acc + loss
-            parts_acc = {k: parts_acc[k] + parts[k] for k in parts}
-            g_acc = [a + x for a, x in zip(g_acc, g)]
-    inv = 1.0 / grad_accum
-    _, td = T.flatten(params)
-    return (loss_acc * inv, {k: v * inv for k, v in parts_acc.items()},
-            T.unflatten(td, [x * inv for x in g_acc]))
 
 
 def tree_all_finite(leaves) -> torch.Tensor:
@@ -109,13 +87,13 @@ def guarded_update(opt, grads, opt_state, params, *, skip_nonfinite: bool):
     return params, new_state, 1.0 - finite.float()
 
 
-def make_train_step(cfg: ArchConfig, opt, grad_accum: int = 1):
+def make_train_step(cfg: ArchConfig, opt):
     """Exact-sync step ``(params, opt_state, batch) -> (params, opt_state,
     metrics)`` on the whole batch — the perfectly-consistent baseline every
     relaxation is compared against."""
 
     def step(params, opt_state, batch):
-        loss, parts, grads = mean_grads(cfg, params, batch, grad_accum)
+        loss, parts, grads = mean_grads(cfg, params, batch)
         flat_g = T.leaves(grads)
         metrics = {"loss": loss, "grad_norm": global_norm(flat_g), **parts}
         _, opt_state, _ = guarded_update(opt, flat_g, opt_state,

@@ -82,14 +82,11 @@ class _LayerSlice(torch.autograd.Function):
 def _layer_slices(stacked, n_layers: int, sinks=None) -> list[dict]:
     """Per-layer parameter dicts.  With ``sinks`` (a tree like ``stacked``
     of gradient buffers) the slices route their gradients into the sinks;
-    without, they are plain differentiable views."""
+    without, they are plain views ``stacked[i]``."""
     flat, td = T.flatten(stacked)
-    if sinks is None:
-        per_leaf = [a.unbind(0) for a in flat]
-    else:
-        per_leaf = [[_LayerSlice.apply(a, i, sink) for i in range(n_layers)]
-                    for a, sink in zip(flat, T.leaves(sinks))]
-    return [T.unflatten(td, [u[i] for u in per_leaf])
+    flat_s = T.leaves(sinks) if sinks is not None else [None] * len(flat)
+    return [T.unflatten(td, [a[i] if s is None else _LayerSlice.apply(a, i, s)
+                             for a, s in zip(flat, flat_s)])
             for i in range(n_layers)]
 
 
