@@ -11,6 +11,12 @@
   ``np.random.default_rng``; tables are bitwise those of the reference.
 * :func:`delivery_plan` routes one step's fresh messages to accumulator
   slots; it reads the host-side tau table, so it never waits on the device.
+* The simulator's delivery machinery: :func:`delay_masks` (one-hot
+  per-delay masks of the ``async`` kind), :func:`taus_to_message_delays`
+  (a per-worker tau table as per-message delays) and
+  :func:`delivery_tensors` (the fused step's whole-run (T, m, p) delivery
+  weights).  All three are 0/1 and integer arithmetic, equal to the
+  reference's exactly.
 """
 from __future__ import annotations
 
@@ -145,3 +151,82 @@ def validate_tau_table(taus: np.ndarray, tau_max: int) -> np.ndarray:
             f"tau[{t}, {w}] = {taus[t, w]} outside [0, {tau_max}] "
             f"and not DROPPED ({np.count_nonzero(bad)} bad entries)")
     return taus.astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# per-message delay masks (simulator async kind)
+# ---------------------------------------------------------------------------
+
+def delay_masks(delays, n_levels: int) -> torch.Tensor:
+    """One-hot delay masks: (..., p, p) int delays -> (n_levels, ..., p, p)
+    f32.  Level ``l`` is the messages delayed by exactly ``l`` steps; for
+    delays in ``[0, n_levels)`` the levels partition the messages (each is
+    delivered exactly once), and a DROPPED (-1) message is in no level."""
+    delays = torch.as_tensor(delays)
+    return torch.stack([(delays == lv).float() for lv in range(n_levels)])
+
+
+def taus_to_message_delays(taus: np.ndarray) -> np.ndarray:
+    """Broadcast a per-worker (T, p) delay table to the simulator's
+    per-message (T, p, p) ``delays[t, receiver, sender]`` layout: every
+    receiver sees sender ``j``'s step-``t`` gradient after ``tau(t, j)``
+    steps, except a worker's own gradient, which is always immediate
+    (diagonal zero).  DROPPED senders stay DROPPED off the diagonal."""
+    taus = np.asarray(taus, np.int32)
+    t_len, p = taus.shape
+    delays = np.broadcast_to(taus[:, None, :], (t_len, p, p)).copy()
+    idx = np.arange(p)
+    delays[:, idx, idx] = 0
+    return delays
+
+
+# ---------------------------------------------------------------------------
+# whole-run delivery tensors (fused simulator step)
+# ---------------------------------------------------------------------------
+
+def delivery_tensors(kind: str, p: int, T: int, per_step: dict,
+                     per_run: dict, knobs: dict, device=None):
+    """Precompute the whole run's delivery tensors, vectorized over T.
+
+    Returns (U (T, m, p) float32, new_alive (T, p) bool or None) on
+    ``device``.  Row 0 of each U[t] weights the x update, rows 1..p the view
+    updates (rows of dead workers are zero), rows p+1..2p
+    (``elastic_variance`` only) the deferred-correction update.  The step
+    scale alpha/p is NOT folded in here.  Schedule arrays may be numpy
+    arrays or tensors; ``per_run["rejoin_step"]`` (p,), where present, lets
+    crashed workers re-enter the sender and receiver sets.
+    """
+    as_t = lambda a: torch.as_tensor(a, device=device)
+    eye = torch.eye(p, dtype=torch.bool, device=device)
+    if kind in ("crash", "crash_subst"):
+        ts = torch.arange(T, device=device)[:, None]
+        crash_step = as_t(per_run["crash_step"])[None, :]   # (1, p)
+        alive = crash_step >= ts                             # (T, p)
+        crashing = crash_step == ts
+        new_alive = alive & ~crashing
+        if "rejoin_step" in per_run:
+            rejoined = ts >= as_t(per_run["rejoin_step"])[None, :]
+            alive = alive | rejoined
+            new_alive = new_alive | rejoined
+        base = alive[:, :, None] & alive[:, None, :]
+        heard = (as_t(per_run["hear_u"]).T[None] < 0.5) \
+            & new_alive[:, :, None] & ~eye[None]
+        recv = torch.where(crashing[:, None, :], heard, base)
+        in_recv = recv.any(dim=1)                            # (T, p)
+        w_v = recv.float() * new_alive[:, :, None]
+        if kind == "crash_subst":
+            missed = ((~recv) & in_recv[:, None, :]).sum(dim=2)
+            w_v = w_v + eye[None] * (missed.float() * new_alive)[:, :, None]
+        u = torch.cat([in_recv.float()[:, None], w_v], dim=1)
+        return u, new_alive
+    if kind == "elastic_variance":
+        drop = (as_t(per_step["drop_u"]) < float(knobs["drop_prob"])) \
+            & ~eye[None]
+        nd = drop.sum(dim=2).float()                         # (T, p)
+        diag_nd = eye[None] * nd[:, :, None]
+        w_v = torch.ones((T, p, p), device=device) + diag_nd - drop.float()
+        w_d = drop.float() - diag_nd
+        u = torch.cat([torch.ones((T, 1, p), device=device), w_v, w_d],
+                      dim=1)
+        return u, None
+    raise ValueError(f"no delivery tensor for kind {kind!r}")

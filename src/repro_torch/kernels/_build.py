@@ -27,6 +27,7 @@ SOURCES = {
     "topk_ef": KERNELS_DIR / "topk_ef" / "csrc" / "topk_ef.cu",
     "topk_cr_deposit": KERNELS_DIR / "cr_reduce" / "csrc" /
     "topk_cr_deposit.cu",
+    "sim_step": KERNELS_DIR / "sim_step" / "csrc" / "sim_step.cu",
 }
 
 _LOCK = threading.Lock()

@@ -119,3 +119,160 @@ def test_kernels_count_launches(cuda):
     after = (topk_ef.launches, topk_cr_deposit.launches,
              onebit_cr_deposit.launches)
     assert [b - a for a, b in zip(before, after)] == [1, 1, 1]
+
+
+# ---------------------------------------------------------------------------
+# the simulator's kernels: delivery_step (K6), sync_step (K7), onebit_ef (K8)
+# ---------------------------------------------------------------------------
+
+def _sim_inputs(cuda, b, p, d, defer, groups=None, seed=0):
+    """Inputs at the simulator's scales: a symmetric A with entries of
+    order 1/sqrt(d) (a Quadratic's A has eigenvalues 1..cond), views and x*
+    of order 1, noise, and a 0/1 delivery tensor scaled by alpha/p."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    n = lambda *s: torch.randn(s, generator=gen, device=cuda)
+    g = groups
+    r = n(g, d, d) if g else n(d, d)
+    a = (r + r.transpose(-1, -2)) / (2 * d ** 0.5)
+    xs = n(g, d) if g else n(d)
+    m = 1 + 2 * p if defer else 1 + p
+    u = (torch.rand((b, m, p), generator=gen, device=cuda) < 0.8).float()
+    u *= 0.02 / p
+    dfr = 1e-3 * n(b, p, d) if defer else None
+    return (n(b, p, d), n(b, d), a.contiguous(), xs, 0.1 * n(b, p, d), u,
+            dfr)
+
+
+SIM_SHAPES = [(1, 8, 32, None), (1, 16, 512, None), (1, 32, 4096, None),
+              (1, 8, 100, None), (16, 16, 256, None), (16, 16, 256, 16),
+              (16, 16, 256, 4), (2, 64, 70, 2)]
+
+
+@pytest.mark.parametrize("b,p,d,groups", SIM_SHAPES)
+@pytest.mark.parametrize("defer", [False, True])
+def test_delivery_step_kernel_matches_plain(cuda, b, p, d, groups, defer):
+    from repro_torch.kernels.sim_step.kernel import delivery_step
+    from repro_torch.kernels.sim_step.ref import delivery_step_plain
+    args = _sim_inputs(cuda, b, p, d, defer, groups)
+    got = delivery_step(*args)
+    want = delivery_step_plain(*args)
+    again = delivery_step(*args)
+    torch.cuda.synchronize()
+    for gk, gp, g2 in zip(got, want, again):
+        if gp is None:
+            assert gk is None and g2 is None
+            continue
+        torch.testing.assert_close(gk, gp, rtol=1e-5, atol=1e-4)
+        assert torch.equal(gk.view(torch.int32), g2.view(torch.int32))
+
+
+@pytest.mark.parametrize("b,p,d,groups", SIM_SHAPES)
+def test_sync_step_kernel_matches_plain(cuda, b, p, d, groups):
+    from repro_torch.kernels.sim_step.kernel import sync_step
+    from repro_torch.kernels.sim_step.ref import sync_step_plain
+    v, x, a, xs, noise, _, _ = _sim_inputs(cuda, b, p, d, False, groups)
+    nsum = noise.sum(1)
+    c = torch.full((b,), 0.02, device=cuda) + 0.01 * torch.arange(
+        b, device=cuda)
+    got = sync_step(x, a, xs, nsum, c)
+    want = sync_step_plain(x, a, xs, nsum, c)
+    again = sync_step(x, a, xs, nsum, c)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+def test_sim_step_kernels_raise_on_what_they_do_not_take(cuda):
+    from repro_torch.kernels.sim_step.kernel import delivery_step, sync_step
+    v, x, a, xs, noise, u, _ = _sim_inputs(cuda, 1, 8, 32, False)
+    with pytest.raises(ValueError):
+        delivery_step(v.cpu(), x, a, xs, noise, u)
+    with pytest.raises(ValueError):
+        delivery_step(v.double(), x, a, xs, noise, u)
+    with pytest.raises(ValueError):
+        delivery_step(v, x, a, xs, noise, u[:, :-1])
+    big = torch.zeros((1, 65, 32), device=cuda)
+    with pytest.raises(ValueError):
+        delivery_step(big, x, a, xs, big, torch.zeros((1, 66, 65),
+                                                      device=cuda))
+    with pytest.raises(ValueError):
+        sync_step(x, a, xs, x, torch.zeros(2, device=cuda))
+
+
+@pytest.mark.parametrize("m,r", [(8, 32), (16, 512), (32, 4096), (8, 100),
+                                 (3, 1), (1, 70001), (64, 7)])
+def test_onebit_ef_kernel_matches_plain(cuda, m, r):
+    from repro_torch.kernels.onebit_ef.kernel import onebit_ef
+    from repro_torch.kernels.onebit_ef.ref import onebit_ef_plain
+    gen = torch.Generator(device=cuda).manual_seed(r)
+    g = torch.randn((m, r), generator=gen, device=cuda)
+    e = 0.1 * torch.randn((m, r), generator=gen, device=cuda)
+    g[-1] = 0.0                      # a row of zeros: all in the + class
+    e[-1] = 0.0
+    got = onebit_ef(g, e)
+    want = onebit_ef_plain(g, e)
+    again = onebit_ef(g, e)
+    torch.cuda.synchronize()
+    assert got[0].shape == (m, (r + 7) // 8)
+    assert torch.equal(got[0], want[0])
+    torch.testing.assert_close(got[1], want[1], rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-6, atol=1e-6)
+    for x1, x2 in zip(got, again):
+        assert torch.equal(x1, x2)
+
+
+def test_onebit_ef_kernel_residual_in_place(cuda):
+    from repro_torch.kernels.onebit_ef.kernel import onebit_ef
+    from repro_torch.kernels.onebit_ef.ref import onebit_ef_plain
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    g = torch.randn((8, 1000), generator=gen, device=cuda)
+    e = torch.randn((8, 1000), generator=gen, device=cuda)
+    want = onebit_ef_plain(g, e)
+    err = e.clone()
+    got = onebit_ef(g, err, out_err=err)
+    torch.cuda.synchronize()
+    assert got[2].data_ptr() == err.data_ptr()
+    torch.testing.assert_close(err, want[2], rtol=1e-6, atol=1e-6)
+
+
+def test_fused_sweep_bitwise_equal_to_single_runs(cuda):
+    """One batched delivery_step launch per step for every seed gives each
+    seed's run bit for bit: each case is one block row of the grid, summed
+    in one fixed order."""
+    from repro_torch.core.problems import Quadratic
+    from repro_torch.core.sim import Relaxation, simulate, simulate_sweep
+    prob = Quadratic(dim=256, cond=8.0, sigma=1.0, seed=0, device=cuda)
+    x0 = np.ones(256, np.float32)
+    for relax in (Relaxation("elastic_variance", drop_prob=0.3),
+                  Relaxation("crash_subst", f=3), Relaxation("sync")):
+        batch = simulate_sweep(prob, relax, 16, 0.02, 50, [0, 5, 9], x0=x0,
+                               fused=True)
+        for s, res in zip([0, 5, 9], batch):
+            one = simulate(prob, relax, 16, 0.02, 50, seed=s, x0=x0,
+                           fused=True)
+            assert np.array_equal(res.x_final.view(np.int32),
+                                  one.x_final.view(np.int32))
+            assert np.array_equal(res.gap2_over_alpha2,
+                                  one.gap2_over_alpha2)
+
+
+def test_simulator_kernels_count_launches(cuda):
+    from repro_torch.core import compression as C
+    from repro_torch.core.problems import Quadratic
+    from repro_torch.core.sim import Relaxation, simulate
+    from repro_torch.kernels import sim_kernels
+    kernels = sim_kernels()
+    prob = Quadratic(dim=32, cond=8.0, sigma=1.0, seed=0, device=cuda)
+    runs = [(Relaxation("crash", f=2), True, "delivery_step"),
+            (Relaxation("sync"), True, "sync_step"),
+            (Relaxation("ef_comp", compressor=C.topk_compressor(0.25)),
+             False, "topk_ef"),
+            (Relaxation("ef_comp", compressor=C.onebit_compressor()), False,
+             "onebit_ef")]
+    for relax, fused, name in runs:
+        before = {k.name: k.launches for k in kernels}
+        res = simulate(prob, relax, 8, 0.02, 12, seed=1, fused=fused)
+        after = {k.name: k.launches for k in kernels}
+        assert np.isfinite(res.losses).all()
+        assert {k: after[k] - before[k] for k in after} == {
+            k: (12 if k == name else 0) for k in after}
