@@ -36,12 +36,30 @@ Phases (any failure exits non-zero):
 10. Figure 3 (``bench_fig3_variance_bounded.py``: MLP, sync and
     variance-bounded, P = 8, T = 800, seeds 4-7): the accuracy recovers;
     the launch counters are zeroed before phase 8 and read after phase 10;
-11. one fused and one unfused simulator run under ``torch.profiler``.
+11. one fused and one unfused simulator run under ``torch.profiler``;
+12. ``swa_decode_attention`` (K9) against its plain version: the serving
+    path's shape (4 slots, 8 kv heads of 128, 4 query heads each, T =
+    4112 keys = 257 pages of 16, window 4096) and T = 128, 512, 1000 and
+    8192, bf16 and f32, with rows whose window slid, rows with most keys
+    beyond the query and a row with no live key; each case twice
+    (bitwise), each element within one bf16 rounding step of the plain
+    version, and timed beside the bound of the bytes its live keys need
+    and ``scaled_dot_product_attention`` with the same mask;
+13. the paged serving steps on small inputs, card against CPU
+    (``mixtral-8x7b-smoke`` and a qwen3 smoke with a window of 96, page
+    32), teacher-forced, on the logits;
+14. the serving path: full-width mixtral-8x7b cut to 24 of its 32 layers,
+    six requests (prompts of 4600 to 100 tokens) over 4 slots, page 16,
+    32 tokens each, greedy, through ``repro_torch.launch.serve.main``;
+    launch counters zeroed just before and read just after (K9 once per
+    layer per decode step);
+15. one steady decode step of that engine under ``torch.profiler``.
 
 The last three lines of standard output are the kernels' JSON record, the
 card's name and power limit, and the result ``{"ok": true, "device":
 {...}}``.
 """
+import gc
 import json
 import math
 import subprocess
@@ -923,6 +941,366 @@ def profile_sim(torch) -> None:
             log(f"  {us / 1e3:9.4f} ms  x{count:<5d} {key[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# phases 12-15: serving
+# ---------------------------------------------------------------------------
+
+# K9 at the serving path's shape: 4 slots, 8 kv heads of 128, 4 query heads
+# each, a window gather of 257 pages of 16 keys; window 4096
+SWA_PATH = (4, 8, 4, 128, 4112)
+SWA_WINDOW = 4096
+# K9 against its plain version, element by element: |got - want| <= atol +
+# rtol * |want|.  In bf16 both round an f32 result to bf16, so they may
+# differ by one rounding step, at most 2^-7 of the value; atol covers f32
+# summation-order differences near zero.  f32 keeps tests/test_kernels.py's
+# bound.
+SWA_TOL = {"bfloat16": (1e-5, 2.0 ** -7), "float32": (3e-6, 0.0)}
+SERVE_LAYERS = 24
+SERVE_PROMPTS = (4600, 3070, 1010, 500, 200, 100)
+SERVE_GEN = 32
+# the paged steps on the card against the same code on the CPU, with TF32
+# and reduced-precision bf16 reductions off as the serving launcher runs
+# them; an H100 80GB HBM3 read 0.022 (mixtral smoke) and 0.020 (qwen3)
+LOGIT_TOL = 0.05
+SERVE_GROUPS = (
+    ("K9 swa_decode_attention", ("swa_split_kernel", "swa_merge_kernel")),
+    ("matmul", ("nvjet", "gemm", "gemv", "xmma", "cutlass", "cublas",
+                "sm90_", "sm80_")),
+    ("gather / copy", ("index", "gather", "copy", "Memcpy", "Memset",
+                       "cat")),
+)
+
+
+def swa_rows(torch, dev, gen, b, kv, g, d, t, dtype):
+    """K9's inputs: row 0 keys from 0 with the query at the last key; row
+    1 a window that slid (base 150, pos - base = T - 1); row 2 most keys
+    beyond pos; row 3 no live key."""
+    n = lambda *s: torch.randn(s, generator=gen, device=dev).to(dtype)
+    base = torch.tensor([0, 150, 3, 500], dtype=torch.int32, device=dev)
+    pos = torch.tensor([t - 1, 150 + t - 1, 40, 100], dtype=torch.int32,
+                       device=dev)
+    return n(b, kv, g, d), n(b, t, kv, d), n(b, t, kv, d), pos, base
+
+
+def swa_over_limit(got, want, dtype) -> float:
+    """The largest |got - want| over its limit (<= 1 passes)."""
+    atol, rtol = SWA_TOL[dtype]
+    err = (got.float() - want.float()).abs()
+    return float((err / (atol + rtol * want.float().abs())).max())
+
+
+def swa_bytes_flops(torch, q, k, pos, base, window):
+    """The bytes and operations K9's function needs on these inputs: q read
+    and the output written once; K and V of the live keys of each row; for
+    a row with no live key (its output is the mean of its values) V of all
+    T keys and no K.  Two multiply-adds a live key per query head and
+    dimension; one add a value per query head for a mean."""
+    b, kv, g, d = q.shape
+    t = k.shape[1]
+    key_pos = base[:, None] + torch.arange(t, device=q.device)[None]
+    live = ((key_pos <= pos[:, None]) & (pos[:, None] - key_pos < window)
+            ).sum(1).tolist()
+    es = k.element_size()
+    row = kv * d * es
+    nbytes = 2 * q.numel() * es + 8 * b + sum(
+        2 * n * row if n else t * row for n in live)
+    flops = sum(4.0 * kv * g * d * n if n else 1.0 * kv * g * d * t
+                for n in live)
+    return nbytes, flops, live
+
+
+def check_swa_decode(torch, dev, gen, records):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.swa_attention.kernel import swa_decode_attention
+    from repro_torch.kernels.swa_attention.ref import swa_decode_plain
+    b, kv, g, d, t_path = SWA_PATH
+    worst = 0.0
+    for t in (t_path, 128, 512, 1000, 8192):
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            q, k, v, pos, base = swa_rows(torch, dev, gen, b, kv, g, d, t, dt)
+            args = (q, k, v, pos, base)
+            got = swa_decode_attention(*args, window=SWA_WINDOW)
+            again = swa_decode_attention(*args, window=SWA_WINDOW)
+            want = swa_decode_plain(*args, window=SWA_WINDOW)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            over = swa_over_limit(got, want, dtype)
+            mean = v[3].float().mean(0)[:, None].expand(kv, g, d)
+            err_dead = float((got[3].float() - mean).abs().max())
+            over_dead = swa_over_limit(got[3], mean, dtype)
+            same = torch.equal(got, again)
+            finite = bool(torch.isfinite(got).all())
+            if dtype == "bfloat16":
+                worst = max(worst, err)
+            tag = f"(B, KV, G, D, T) = ({b}, {kv}, {g}, {d}, {t}) {dtype}"
+            atol, rtol = SWA_TOL[dtype]
+            log(f"check swa_decode_attention {tag}: max_abs_err {err}, "
+                f"largest error over its limit {over} (limit {atol} + "
+                f"{rtol} |plain| an element; max |plain| "
+                f"{float(want.float().abs().max())}); no-live-key row vs "
+                f"mean of values {err_dead} ({over_dead} of its limit), "
+                f"run-to-run bitwise {same}, finite {finite}")
+            require(over <= 1 and over_dead <= 1 and same and finite,
+                    f"swa_decode_attention {tag} != plain version")
+            key_pos = base[:, None] + torch.arange(t, device=dev)[None]
+            mask = (key_pos <= pos[:, None]) & (pos[:, None] - key_pos
+                                                < SWA_WINDOW)
+            qs = q.reshape(b, kv * g, 1, d)
+            ks = k.transpose(1, 2).contiguous()
+            vs = v.transpose(1, 2).contiguous()
+            sdpa_mask = mask[:, None, None, :]
+            ms, call = device_ms(torch, lambda: swa_decode_attention(
+                *args, window=SWA_WINDOW))
+            plain, _ = device_ms(torch, lambda: swa_decode_plain(
+                *args, window=SWA_WINDOW))
+            lib, _ = device_ms(torch, lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=sdpa_mask, enable_gqa=True))
+            nbytes, flops, live = swa_bytes_flops(torch, q, k, pos, base,
+                                                  SWA_WINDOW)
+            bnd, by = bound_of(nbytes, flops)
+            log(f"time swa_decode_attention {tag}: kernel {ms:.4f} ms on the "
+                f"device ({call:.4f} ms a call from the host), plain "
+                f"{plain:.4f} ms, scaled_dot_product_attention (bool mask, "
+                f"enable_gqa) {lib:.4f} ms, bound {bnd:.4f} ms ({by}; "
+                f"{nbytes} bytes for live keys {live} of {t})")
+            if t == t_path and dtype == "bfloat16":
+                records[swa_decode_attention.name] = dict(
+                    name=swa_decode_attention.name, route="cuda",
+                    source=swa_decode_attention.source,
+                    replaces=swa_decode_attention.replaces, ms=ms,
+                    plain_ms=plain, bound_ms=bnd, bound_by=by,
+                    library_ms=lib, shape=[b, kv, g, d, t])
+            del q, k, v, ks, vs, got, again, want, args
+            torch.cuda.empty_cache()
+    records[swa_decode_attention.name]["max_abs_err"] = worst
+
+
+def set_matmul_precision(torch, reduced: bool) -> None:
+    """TF32 float32 matmuls and reduced-precision bf16 reductions on or
+    off (off is how the serving launcher runs)."""
+    torch.backends.cuda.matmul.allow_tf32 = reduced
+    torch.backends.cudnn.allow_tf32 = reduced
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        reduced
+
+
+def check_small_serve(torch, dev):
+    """The paged prefill and decode steps on the card against the same
+    code on the CPU: two requests, then 4 decode steps fed the same
+    (teacher-forced) tokens; logits within LOGIT_TOL at full matmul
+    precision.  The card is run a second time with TF32 matmuls and
+    reduced-precision bf16 reductions, and that reading is only logged."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.params import init_serving_params
+    from repro_torch.serve import engine as ENG
+    from repro_torch.serve.paged_cache import (PagedCacheConfig,
+                                               init_page_pool)
+
+    def steps(cfg, pcfg, params, d, w, lens, table, prompts, feed):
+        p = T.tree_map(lambda a: a.to(d), params)
+        kp, vp = init_page_pool(cfg.n_layers, cfg.n_kv_heads,
+                                cfg.resolved_head_dim, pcfg, device=d)
+        out = []
+        for i, s in enumerate(lens):
+            bp = -(-s // pcfg.page_size)
+            toks = np.zeros((1, bp * pcfg.page_size), np.int32)
+            toks[0, :s] = prompts[i]
+            step = ENG.make_paged_prefill_step(cfg, pcfg, bp)
+            lg, kp, vp = step(p, kp, vp, torch.tensor(toks, device=d), s,
+                              torch.tensor(table[i, :bp], device=d))
+            out.append(lg.cpu())
+        decode = ENG.make_paged_decode_step(cfg, pcfg, window=w)
+        pos = torch.tensor(lens, dtype=torch.int32, device=d)
+        tab = torch.tensor(table, device=d)
+        act = torch.ones((len(lens),), dtype=torch.bool, device=d)
+        for t in range(len(feed)):
+            lg, pos, kp, vp = decode(p, kp, vp,
+                                     torch.tensor(feed[t], device=d), pos,
+                                     tab, act)
+            out.append(lg.cpu())
+        return out
+
+    cases = (("mixtral-8x7b-smoke", None, 8, 8, (45, 16)),
+             ("qwen3-1.7b-smoke", 96, 32, 6, (150, 64)))
+    # the steps end in sample_tokens; returning the logits there instead
+    # exposes them through the steps' own code
+    sample_tokens = ENG.sample_tokens
+    ENG.sample_tokens = lambda logits, sc, gen=None: logits
+    try:
+        for name, window, ps, n_table, lens in cases:
+            cfg = get_config(name)
+            if window:
+                cfg = dataclasses.replace(cfg, sliding_window=window)
+            w = cfg.layer_window_sizes()[0]
+            params = init_serving_params(
+                TF.model_defs(cfg), torch.Generator().manual_seed(0), "cpu")
+            r = len(lens)
+            pcfg = PagedCacheConfig(page_size=ps, num_pages=r * n_table,
+                                    max_requests=r, max_pages_per_seq=n_table)
+            rng = np.random.default_rng(0)
+            table = np.arange(r * n_table, dtype=np.int32).reshape(r, n_table)
+            prompts = [rng.integers(0, cfg.vocab_size, s) for s in lens]
+            feed = rng.integers(0, cfg.vocab_size, (4, r)).astype(np.int32)
+            args = (cfg, pcfg, params)
+            rest = (w, lens, table, prompts, feed)
+            cpu = steps(*args, "cpu", *rest)
+            err = {}
+            for reduced in (False, True):
+                set_matmul_precision(torch, reduced)
+                card = steps(*args, dev, *rest)
+                err[reduced] = max(float((a - b).abs().max())
+                                   for a, b in zip(cpu, card))
+            set_matmul_precision(torch, False)
+            log(f"check serve steps {name} (window {w}, page {ps}), card vs "
+                f"cpu, 2 prefills + 4 teacher-forced decode steps: logits "
+                f"max_abs_err {err[False]} (tol {LOGIT_TOL}); with TF32 "
+                f"matmuls and reduced-precision bf16 reductions on the card "
+                f"{err[True]} (logged only)")
+            require(err[False] <= LOGIT_TOL,
+                    f"{name}: serving logits differ card vs cpu")
+    finally:
+        ENG.sample_tokens = sample_tokens
+        set_matmul_precision(torch, False)
+
+
+def serve_argv():
+    return ["--arch", "mixtral-8x7b", "--engine", "continuous",
+            "--prompt-lens", ",".join(map(str, SERVE_PROMPTS)),
+            "--gen", str(SERVE_GEN), "--batch", "4", "--page-size", "16",
+            "--device", "cuda", "--seed", "0"]
+
+
+def run_serve(torch, kernels):
+    """Phase 14: the serving path through its launcher's entry point, with
+    the launch counters zeroed just before; returns (counts, result)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"),
+                              n_layers=SERVE_LAYERS)
+    argv = serve_argv()
+    log(f"serve path: python -m repro_torch.launch.serve {' '.join(argv)} "
+        f"(mixtral-8x7b with n_layers {SERVE_LAYERS}; "
+        f"{cfg.param_count()} parameters)")
+    total = torch.cuda.get_device_properties(0).total_memory
+    left = torch.cuda.memory_allocated()
+    log(f"serve path: memory allocated before loading {left} bytes")
+    require(left < 2 ** 30, "earlier phases left memory allocated")
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    out = serve.main(argv, cfg=cfg)
+    counts = {k.name: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    engine = out["engine"]
+    toks = out["tokens"]
+    decode_s = out["wall_s"] - sum(out["prefill_s"])
+    n_tok = sum(len(t) for t in toks)
+    log(f"serve path: {len(toks)} requests, {engine.steps} decode steps "
+        f"(scheduler clock {out['scheduler'].clock}), wall {out['wall_s']:.3f}"
+        f" s; prefill s per request "
+        f"{[round(x, 4) for x in out['prefill_s']]}; decode "
+        f"{engine.steps / decode_s:.3f} steps/s ({decode_s:.3f} s); "
+        f"{n_tok / out['wall_s']:.3f} tokens/s end to end; peak memory "
+        f"{peak} bytes ({peak / total:.3f} of {total}); launches "
+        f"{json.dumps(counts)}")
+    require(counts["swa_decode_attention"] == SERVE_LAYERS * engine.steps,
+            f"swa_decode_attention launched {counts['swa_decode_attention']}"
+            f" times, not {SERVE_LAYERS} x {engine.steps}")
+    require(all(c == 0 for n, c in counts.items()
+                if n != "swa_decode_attention"),
+            "a kernel off the serving path was launched")
+    require(len(toks) == len(SERVE_PROMPTS) and all(
+        len(t) == SERVE_GEN and int(t.min()) >= 0
+        and int(t.max()) < cfg.vocab_size for t in toks),
+        "a request did not complete with in-vocab tokens")
+    engine.alloc.check()
+    require(engine.alloc.n_free == engine.pcfg.num_pages, "pages leaked")
+    require(peak <= 0.9 * total, "peak memory above 90% of the card")
+    return counts, out
+
+
+def profile_serve(torch, engine) -> None:
+    """Phase 15: one steady decode step of the phase-14 engine (4 active
+    slots, the same window gather) under torch.profiler.  Device kernels
+    launched by a torch op inside the ``moe_dispatch`` range (routing and
+    the dispatch product) form their own group; the rest are grouped by
+    name."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(1)
+    for rid in range(4):
+        engine.start(100 + rid, rng.integers(0, engine.cfg.vocab_size, 500),
+                     8)
+    for _ in range(2):
+        engine.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    for rid in range(4):
+        engine.finish(100 + rid)
+
+    def moe_kernels(event, in_moe):
+        in_moe = in_moe or event.name == "moe_dispatch"
+        for k in event.kernels if in_moe else ():
+            yield k
+        for child in event.cpu_children:
+            yield from moe_kernels(child, in_moe)
+
+    # every device kernel by name (K9 is launched through ctypes, not by a
+    # torch op, so only the device rows see it), less those that a torch
+    # op inside the moe_dispatch range launched
+    per_name = {}
+    for e in prof.key_averages():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)
+                and e.self_device_time_total > 0):
+            per_name[e.key] = (e.self_device_time_total, e.count)
+    moe = {}
+    for root in prof.events():
+        if root.device_type == torch.autograd.DeviceType.CPU and \
+                root.cpu_parent is None:
+            for k in moe_kernels(root, False):
+                t, c = moe.get(k.name, (0.0, 0))
+                moe[k.name] = (t + k.duration, c + 1)
+    groups = {}
+    for name, (us, count) in per_name.items():
+        m_us, m_count = moe.get(name, (0.0, 0))
+        m_us, m_count = min(m_us, us), min(m_count, count)
+        group = next((g for g, pats in SERVE_GROUPS
+                      if any(p in name for p in pats)), "other")
+        for g, t, c in ((group, us - m_us, count - m_count),
+                        ("MoE dispatch", m_us, m_count)):
+            if c:
+                have_t, have_c = groups.get(g, (0.0, 0))
+                groups[g] = (have_t + t, have_c + c)
+    busy_us = sum(t for t, _ in groups.values())
+    n_kernels = sum(c for _, c in groups.values())
+    log(f"profile serve decode step: wall {wall * 1e3:.2f} ms (profiler "
+        f"on), device kernels {busy_us / 1e3:.3f} ms "
+        f"({busy_us / 1e3 / (wall * 1e3):.3f} of wall), {n_kernels} kernels")
+    for group, (us, count) in sorted(groups.items(), key=lambda g: -g[1][0]):
+        log(f"  group {group:<24s} {us / 1e3:9.3f} ms  x{count}")
+    for name, (us, count) in sorted(per_name.items(),
+                                    key=lambda r: -r[1][0])[:12]:
+        log(f"  {us / 1e3:9.3f} ms  x{count:<5d} {name[:100]}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -998,6 +1376,20 @@ def main() -> int:
         require(sim_counts[name] > 0, f"{name} never launched on the sim path")
         records[name]["launches"] = sim_counts[name]
     profile_sim(torch)
+
+    # serving: K9, the small card-vs-CPU check, then the full-width path
+    # with every kernel's counter zeroed just before it
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_swa_decode(torch, dev, gen, records)
+    check_small_serve(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts, served = run_serve(torch, all_kernels())
+    records["swa_decode_attention"]["launches"] = counts[
+        "swa_decode_attention"]
+    profile_serve(torch, served["engine"])
+    del served
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,8 +1,8 @@
 """Architecture configuration (counterpart of ``repro.configs.base``).
 
 The dataclass carries every field of the reference's ``ArchConfig`` so a
-parity test can compare the two field by field; the port runs only the
-dense attention stack (``block_type == "attn"`` without MoE).
+parity test can compare the two field by field; the port runs the
+uniform-window attention stack (``block_type == "attn"``), dense or MoE.
 """
 from __future__ import annotations
 
@@ -88,12 +88,17 @@ class ArchConfig:
         return out
 
     def param_count(self) -> int:
-        """Analytic parameter count of a dense attention stack."""
+        """Analytic parameter count of an attention stack (dense or MoE)."""
         d, v = self.d_model, self.vocab_size
         n = v * d if self.tie_embeddings else 2 * v * d
         hd = self.resolved_head_dim
         per_layer = (d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
-                     + self.n_heads * hd * d + 3 * d * self.d_ff + 2 * d)
+                     + self.n_heads * hd * d + 2 * d)
+        if self.is_moe:
+            per_layer += (self.n_experts * 3 * d * self.expert_d_ff
+                          + d * self.n_experts)
+        else:
+            per_layer += 3 * d * self.d_ff
         return n + self.n_layers * per_layer
 
     def reduced(self) -> "ArchConfig":

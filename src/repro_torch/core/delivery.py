@@ -60,8 +60,24 @@ def ring_put(ring: torch.Tensor, slot: int, value) -> torch.Tensor:
     return ring
 
 
-def tree_ring_init(capacity: int, leaves, dtype=torch.float32, device=None):
-    return [ring_init(capacity, tuple(a.shape), dtype, device) for a in leaves]
+def tree_ring_init(capacity: int, leaves, dtype=None, device=None):
+    """Per-leaf :func:`ring_init`; ``dtype``/``device`` None keep each
+    leaf's own."""
+    return [ring_init(capacity, tuple(a.shape),
+                      a.dtype if dtype is None else dtype,
+                      a.device if device is None else device)
+            for a in leaves]
+
+
+def tree_ring_put(rings, slot: int, values):
+    """Per-leaf :func:`ring_put` (overwrite)."""
+    return [ring_put(r, slot, v) for r, v in zip(rings, values)]
+
+
+def tree_ring_read(rings, slot: int):
+    """Read ``slot`` of every ring without consuming it (a version ring is
+    read many times)."""
+    return [r[slot] for r in rings]
 
 
 def tree_ring_deposit(rings, slot: int, values):

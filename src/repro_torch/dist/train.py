@@ -1,5 +1,5 @@
-"""Loss, gradients and the exact-sync train step (counterpart of
-``repro.dist.train``).
+"""Loss, gradients, the exact-sync train step and the dense-cache serving
+steps (counterpart of ``repro.dist.train``).
 
 Parameters are a nested dict of float32 tensors in the reference's layout;
 gradients come back as a tree of the same structure.  Optimizer state and
@@ -15,6 +15,7 @@ from repro_torch import tree as T
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer as TF
 from repro_torch.optim import apply_updates, global_norm
+from repro_torch.serve.sampling import SampleConfig, sample_tokens
 
 
 def loss_fn(cfg: ArchConfig, params, batch: dict, layer_sinks=None):
@@ -102,3 +103,37 @@ def make_train_step(cfg: ArchConfig, opt):
         return params, opt_state, metrics
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# serving steps (the dense legacy loop: the paged engine's oracle)
+# ---------------------------------------------------------------------------
+
+def make_prefill_step(cfg: ArchConfig, max_len: int, sample=None):
+    """``(params, batch, gen=None) -> (tokens (B,), cache)``: run the
+    prompt, allocate a ``max_len`` cache, emit the first continuation
+    token (greedy unless ``sample`` is a sampled
+    `repro_torch.serve.sampling.SampleConfig`; its noise comes from
+    ``gen``)."""
+    sc = sample or SampleConfig()
+
+    @torch.no_grad()
+    def prefill_step(params, batch, gen=None):
+        logits, cache = TF.prefill(cfg, params, batch, max_len)
+        return sample_tokens(logits[:, -1, :], sc, gen), cache
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ArchConfig, sample=None):
+    """``(params, cache, tokens (B, 1), gen=None) -> (tokens (B,),
+    cache)``: one batched decode step at position ``cache["pos"]``; the
+    cache is updated in place."""
+    sc = sample or SampleConfig()
+
+    @torch.no_grad()
+    def decode_step(params, cache, tokens, gen=None):
+        logits, cache = TF.decode_step(cfg, params, cache, tokens)
+        return sample_tokens(logits[:, -1, :], sc, gen), cache
+
+    return decode_step

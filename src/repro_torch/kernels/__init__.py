@@ -1,9 +1,11 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch
 version: ``topk_ef`` (K1, CUDA C++), the ``cr_reduce`` deposits (K2 CUDA
 C++, K3 Triton), ``sim_step`` (K6 ``delivery_step`` and K7 ``sync_step``,
-CUDA C++) and ``onebit_ef`` (K8, Triton).  :func:`main_path_kernels` lists
-the training path's wrappers, :func:`sim_kernels` the simulator's and
-:func:`all_kernels` every one."""
+CUDA C++), ``onebit_ef`` (K8, Triton) and ``swa_attention`` (K9
+``swa_decode_attention``, CUDA C++).  :func:`main_path_kernels` lists the
+training path's wrappers, :func:`sim_kernels` the simulator's,
+:func:`serve_kernels` the serving path's and :func:`all_kernels` every
+one."""
 
 
 def main_path_kernels():
@@ -23,10 +25,17 @@ def sim_kernels():
     return [topk_ef, delivery_step, sync_step, onebit_ef]
 
 
+def serve_kernels():
+    """The kernel wrappers the paged serving decode launches: K9 on every
+    windowed attention layer."""
+    from repro_torch.kernels.swa_attention.kernel import swa_decode_attention
+    return [swa_decode_attention]
+
+
 def all_kernels():
     """Every kernel wrapper of the port, each once."""
     out = []
-    for k in main_path_kernels() + sim_kernels():
+    for k in main_path_kernels() + sim_kernels() + serve_kernels():
         if k not in out:
             out.append(k)
     return out

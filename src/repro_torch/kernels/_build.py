@@ -28,6 +28,7 @@ SOURCES = {
     "topk_cr_deposit": KERNELS_DIR / "cr_reduce" / "csrc" /
     "topk_cr_deposit.cu",
     "sim_step": KERNELS_DIR / "sim_step" / "csrc" / "sim_step.cu",
+    "swa_decode": KERNELS_DIR / "swa_attention" / "csrc" / "swa_decode.cu",
 }
 
 _LOCK = threading.Lock()

@@ -1,14 +1,14 @@
 """Transformer layers (counterpart of ``repro.models.layers``): RMSNorm,
-RoPE, GQA attention and the gated MLP, in the reference's layouts and
-precisions.
+RoPE, GQA attention (training/prefill and the dense-cache decode) and the
+gated MLP, in the reference's layouts and precisions.
 
-Activations are bf16 (``COMPUTE_DTYPE``); weights are stored f32 and cast
-to bf16 at each use.  Where the reference asks for an f32 result from bf16
-operands (``preferred_element_type=f32``: attention scores, the attention
-output and the LM head), the operands are widened to f32 first — a product
-of two bf16 values is exact in f32, so this is bf16 inputs with f32
-accumulation.  The reference attention is plain jnp, not Pallas, so it is
-plain torch here too.
+Activations are bf16 (``COMPUTE_DTYPE``); weights are stored f32 (bf16 for
+serving) and cast to bf16 at each use. Where the reference asks for an f32
+result from bf16 operands (``preferred_element_type=f32``: attention
+scores, the attention output and the LM head), the operands are widened to
+f32 first — a product of two bf16 values is exact in f32, so this is bf16
+inputs with f32 accumulation. The reference attention is plain jnp, not
+Pallas, so it is plain torch here too.
 """
 from __future__ import annotations
 
@@ -138,11 +138,34 @@ def project_qkv(params, cfg, x, positions):
     return q, k, v
 
 
-def attention_block(params, cfg, x, positions, *, window: int):
-    """Training attention sub-block: qkv proj, rope, attention, out proj."""
+def attention_block(params, cfg, x, positions, *, window: int,
+                    kv_cache=None, cache_index=None):
+    """Attention sub-block: qkv proj, rope, attention, out proj.
+
+    Training/prefill (``kv_cache`` None): attends within x; returns
+    ``(out, (k, v))``.  Decode: ``kv_cache = (k_cache, v_cache)``, each
+    (B, T, K, D), x is (B, 1, d) and ``cache_index`` the write position;
+    the new k, v are written into the caches in place (the reference
+    returns updated copies) and ``(out, kv_cache)`` is returned."""
+    dt = x.dtype
     q, k, v = project_qkv(params, cfg, x, positions)
-    out = gqa_attention(q, k, v, window=window)
-    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+    if kv_cache is None:
+        out = gqa_attention(q, k, v, window=window)
+        kv = (k, v)
+    else:
+        k_cache, v_cache = kv_cache
+        s_new = k.shape[1]
+        k_cache[:, cache_index:cache_index + s_new] = k.to(k_cache.dtype)
+        v_cache[:, cache_index:cache_index + s_new] = v.to(v_cache.dtype)
+        b, t, nk, hd = k_cache.shape
+        q5 = q.reshape(b, 1, nk, cfg.n_heads // nk, hd)
+        k_pos = torch.arange(t, device=x.device)
+        k_pos = torch.where(k_pos <= cache_index, k_pos, -1)
+        out = masked_attn_chunk(
+            q5, k_cache.to(dt), v_cache.to(dt), positions, k_pos, window,
+            hd ** -0.5).reshape(b, 1, cfg.n_heads, hd).to(dt)
+        kv = kv_cache
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dt)), kv
 
 
 def mlp_defs(d: int, ff: int) -> dict:

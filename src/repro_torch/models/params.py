@@ -9,6 +9,11 @@ layers at once, and splitting the leaf would change which entries win.
 Spec resolution maps logical axes to the ``model`` mesh axis exactly as the
 reference does; on the in-process data-parallel port the model axis has
 size 1, so every spec is all-``None``.
+
+Serving holds every matrix in the compute dtype
+(:func:`init_serving_params`): each use of a matrix casts it to bf16 first,
+so bf16-held leaves give bitwise the same operands as f32-held ones, at
+half the memory.  Norm scales stay f32.
 """
 from __future__ import annotations
 
@@ -85,6 +90,33 @@ def init_params(defs, gen: torch.Generator, device=None):
     carry the reference's params over with :func:`params_from_jax`."""
     device = device if device is not None else gen.device
     return T.tree_map(lambda d: d.materialize(gen, device), defs)
+
+
+def _is_matrix(d: ParamDef) -> bool:
+    """A leaf of two or more dims per layer (not a norm scale)."""
+    per_layer = len(d.shape) - (d.axes[:1] == ("layers",))
+    return per_layer >= 2
+
+
+def init_serving_params(defs, gen: torch.Generator, device=None):
+    """Materialize a ParamDef tree for serving: matrices in bfloat16, norm
+    scales in float32, leaves drawn in leaf order.  A stacked leaf is drawn
+    layer by layer into its preallocated tensor, so no float32 copy of a
+    whole stacked leaf ever exists (``w_gate`` of mixtral-8x7b at 24
+    layers is 11.3 G entries, 45 GB in float32)."""
+    device = device if device is not None else gen.device
+
+    def draw(d: ParamDef) -> torch.Tensor:
+        dt = torch.bfloat16 if _is_matrix(d) else torch.float32
+        if d.axes[:1] != ("layers",):
+            return d.materialize(gen, device).to(dt)
+        one = dataclasses.replace(d, shape=d.shape[1:], axes=d.axes[1:])
+        out = torch.empty(d.shape, dtype=dt, device=device)
+        for i in range(d.shape[0]):
+            out[i].copy_(one.materialize(gen, device))
+        return out
+
+    return T.tree_map(draw, defs)
 
 
 def params_from_jax(tree_of_numpy, device="cpu"):

@@ -1,5 +1,7 @@
-"""Model assembly for the dense attention stack (counterpart of the
-uniform-window branch of ``repro.models.transformer``).
+"""Model assembly for the uniform-window attention stack, dense or MoE
+(counterpart of the uniform-window branch of ``repro.models.transformer``):
+the training forward, and the serving ``prefill`` / ``decode_step`` over a
+dense (B, max_len) KV cache, which is the paged engine's oracle.
 
 Parameters keep the reference's stacked layout (leading ``n_layers`` dim
 on every layer leaf); the stack loops over layers in Python.  Each layer's
@@ -13,9 +15,11 @@ once, about 6.4 GB more at the peak of the full-width step.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import BLOCK_ATTN, FRONTEND_NONE, ArchConfig
 from repro_torch import tree as T
+from repro_torch.models import moe as MOE
 from repro_torch.models.layers import (COMPUTE_DTYPE, attention_block,
                                        attention_defs, mlp_block, mlp_defs,
                                        rmsnorm, rmsnorm_def)
@@ -23,12 +27,12 @@ from repro_torch.models.params import ParamDef, stack_defs
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    if (cfg.block_type != BLOCK_ATTN or cfg.is_moe or cfg.shared_attn_every
+    if (cfg.block_type != BLOCK_ATTN or cfg.shared_attn_every
             or cfg.frontend != FRONTEND_NONE
             or len(set(cfg.layer_window_sizes())) > 1):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs only the dense uniform-window "
-            "attention stack")
+            f"{cfg.name}: the port runs only the uniform-window attention "
+            "stack (dense or MoE)")
 
 
 def model_defs(cfg: ArchConfig) -> dict:
@@ -45,8 +49,11 @@ def model_defs(cfg: ArchConfig) -> dict:
         "ln_attn": rmsnorm_def(d),
         "attn": attention_defs(cfg),
         "ln_mlp": rmsnorm_def(d),
-        "mlp": mlp_defs(d, cfg.d_ff),
     }
+    if cfg.is_moe:
+        layer["moe"] = MOE.moe_defs(cfg)
+    else:
+        layer["mlp"] = mlp_defs(d, cfg.d_ff)
     defs["layers"] = stack_defs(layer, cfg.n_layers)
     return defs
 
@@ -90,17 +97,38 @@ def _layer_slices(stacked, n_layers: int, sinks=None) -> list[dict]:
             for i in range(n_layers)]
 
 
-def attn_stack(cfg: ArchConfig, stacked, x, positions, sinks=None):
-    """Run the uniform attention stack.  Returns (x, aux_sum)."""
+def attn_stack(cfg: ArchConfig, stacked, x, positions, sinks=None, *,
+               kv_caches=None, cache_index=None, collect_kv=False):
+    """Run the uniform attention stack.  Returns ``(x, aux_sum, kvs)``:
+    ``kvs`` is the stacked (L, B, S, K, D) ``(k, v)`` of every layer with
+    ``collect_kv``, the caches ``kv_caches`` (each (L, B, T, K, D),
+    written in place at ``cache_index``) when decoding, else None."""
     window = cfg.layer_window_sizes()[0] if cfg.n_layers else 0
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp in _layer_slices(stacked, cfg.n_layers, sinks):
-        h = attention_block(lp["attn"], cfg,
-                            rmsnorm(x, lp["ln_attn"], cfg.norm_eps),
-                            positions, window=window)
+    kvs = kv_caches
+    for i, lp in enumerate(_layer_slices(stacked, cfg.n_layers, sinks)):
+        cache = None if kv_caches is None else (kv_caches[0][i],
+                                                kv_caches[1][i])
+        h, kv = attention_block(lp["attn"], cfg,
+                                rmsnorm(x, lp["ln_attn"], cfg.norm_eps),
+                                positions, window=window, kv_cache=cache,
+                                cache_index=cache_index)
+        if collect_kv:
+            if kvs is None:
+                kvs = tuple(torch.empty((cfg.n_layers, *a.shape),
+                                        dtype=a.dtype, device=a.device)
+                            for a in kv)
+            kvs[0][i].copy_(kv[0])
+            kvs[1][i].copy_(kv[1])
         x = x + h
-        x = x + mlp_block(lp["mlp"], rmsnorm(x, lp["ln_mlp"], cfg.norm_eps))
-    return x, aux
+        y = rmsnorm(x, lp["ln_mlp"], cfg.norm_eps)
+        if cfg.is_moe:
+            out, a = MOE.moe_block(lp["moe"], cfg, y)
+            aux = aux + a
+        else:
+            out = mlp_block(lp["mlp"], y)
+        x = x + out
+    return x, aux, kvs
 
 
 def forward(cfg: ArchConfig, params, batch: dict, layer_sinks=None):
@@ -109,5 +137,46 @@ def forward(cfg: ArchConfig, params, batch: dict, layer_sinks=None):
     leaves' gradients on backward (see :class:`_LayerSlice`)."""
     x = embed_input(cfg, params, batch)
     positions = torch.arange(x.shape[1], device=x.device)
-    x, aux = attn_stack(cfg, params["layers"], x, positions, layer_sinks)
+    x, aux, _ = attn_stack(cfg, params["layers"], x, positions, layer_sinks)
     return lm_logits(cfg, params, x), aux
+
+
+# ---------------------------------------------------------------------------
+# serving over a dense (B, max_len) KV cache
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ArchConfig, batch_size: int, max_len: int,
+               device=None) -> dict:
+    """Zeroed serving cache: ``{"pos": 0, "kv": (k, v)}``, each
+    (L, B, max_len, K, D) in the compute dtype."""
+    shape = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads,
+             cfg.resolved_head_dim)
+    return {"pos": 0, "kv": tuple(
+        torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device)
+        for _ in range(2))}
+
+
+def prefill(cfg: ArchConfig, params, batch: dict, max_len: int):
+    """Run the prompt; returns (last-token logits (B, 1, V), cache) with the
+    cache padded to ``max_len`` positions, in the compute dtype."""
+    x = embed_input(cfg, params, batch)
+    s = x.shape[1]
+    positions = torch.arange(s, device=x.device)
+    x, _, kvs = attn_stack(cfg, params["layers"], x, positions,
+                           collect_kv=True)
+    kv = tuple(F.pad(a, (0, 0, 0, 0, 0, max_len - s)).to(COMPUTE_DTYPE)
+               for a in kvs)
+    return lm_logits(cfg, params, x[:, -1:]), {"pos": s, "kv": kv}
+
+
+def decode_step(cfg: ArchConfig, params, cache: dict, tokens):
+    """One decode step: tokens (B, 1) at position ``cache["pos"]``.  The
+    cache's tensors are updated in place.  Returns (logits (B, 1, V),
+    new_cache)."""
+    pos = cache["pos"]
+    x = params["embed"][tokens.long()].to(COMPUTE_DTYPE)
+    positions = torch.full((x.shape[0], 1), pos, dtype=torch.long,
+                           device=x.device)
+    x, _, kvs = attn_stack(cfg, params["layers"], x, positions,
+                           kv_caches=cache["kv"], cache_index=pos)
+    return lm_logits(cfg, params, x), {"pos": pos + 1, "kv": kvs}

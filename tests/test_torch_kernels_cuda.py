@@ -276,3 +276,66 @@ def test_simulator_kernels_count_launches(cuda):
         assert np.isfinite(res.losses).all()
         assert {k: after[k] - before[k] for k in after} == {
             k: (12 if k == name else 0) for k in after}
+
+
+# ---------------------------------------------------------------------------
+# serving: swa_decode_attention (K9)
+# ---------------------------------------------------------------------------
+
+def _swa_inputs(cuda, b, kv, g, d, t, dtype, seed=0):
+    """Rows as the paged decode makes them, and harder ones: row 0 keys
+    from position 0 with the query at the end; row 1 a window that slid
+    (base > 0, pos - base > window); row 2 most keys beyond pos; the last
+    row no live key (all its keys beyond pos)."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(cuda).to(dtype)
+               for s in ((b, kv, g, d), (b, t, kv, d), (b, t, kv, d)))
+    base = np.array([0, 150, 3, 500][:b], np.int32)
+    pos = np.array([t - 1, 150 + t - 1, 40, 100][:b], np.int32)
+    return q, k, v, torch.from_numpy(pos).to(cuda), \
+        torch.from_numpy(base).to(cuda)
+
+
+@pytest.mark.parametrize("t", [4112, 1000])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_swa_decode_kernel_matches_plain(cuda, t, dtype):
+    """The serving path's shape (B 4, KV 8, G 4, D 128, T 4112 = 257 pages
+    of 16, window 4096) and a ragged T, and bitwise from run to run.  bf16
+    element by element within one bf16 rounding step of the plain version
+    (1e-5 + 2^-7 |plain|): the outputs are near sqrt(e / T), so a fixed
+    2e-2 would be as large as the values; f32 within 3e-6 (the bound of
+    tests/test_kernels.py)."""
+    from repro_torch.kernels.swa_attention.kernel import swa_decode_attention
+    from repro_torch.kernels.swa_attention.ref import swa_decode_plain
+    dt = getattr(torch, dtype)
+    q, k, v, pos, base = _swa_inputs(cuda, 4, 8, 4, 128, t, dt, seed=t)
+    got = swa_decode_attention(q, k, v, pos, base, window=4096)
+    again = swa_decode_attention(q, k, v, pos, base, window=4096)
+    want = swa_decode_plain(q, k, v, pos, base, window=4096)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and torch.isfinite(got).all()
+    atol, rtol = (1e-5, 2.0 ** -7) if dtype == "bfloat16" else (3e-6, 0.0)
+
+    def within(a, b):
+        return bool(((a.float() - b.float()).abs()
+                     <= atol + rtol * b.float().abs()).all())
+
+    assert within(got, want)
+    assert torch.equal(got, again)
+    # the row with no live key: the mean of its values
+    assert within(got[3], v[3].float().mean(0)[:, None].expand(8, 4, 128))
+
+
+def test_swa_decode_kernel_checks_and_counts(cuda):
+    from repro_torch.kernels.swa_attention.kernel import swa_decode_attention
+    q, k, v, pos, base = _swa_inputs(cuda, 2, 2, 2, 32, 64, torch.float32)
+    before = swa_decode_attention.launches
+    swa_decode_attention(q, k, v, pos, base, window=0)
+    assert swa_decode_attention.launches == before + 1
+    with pytest.raises(ValueError):
+        swa_decode_attention(q, k.to(torch.bfloat16), v, pos, base)
+    with pytest.raises(ValueError):
+        swa_decode_attention(q, k.transpose(1, 2), v, pos, base)
+    with pytest.raises(ValueError):
+        swa_decode_attention(q.cpu(), k, v, pos, base)
