@@ -53,7 +53,22 @@ Phases (any failure exits non-zero):
     32 tokens each, greedy, through ``repro_torch.launch.serve.main``;
     launch counters zeroed just before and read just after (K9 once per
     layer per decode step);
-15. one steady decode step of that engine under ``torch.profiler``.
+15. one steady decode step of that engine under ``torch.profiler``;
+16. ``ssd_chunked`` (K10) against its plain version: the hybrid serving
+    path's shape (batch 4, T 4096, 64 heads of 112, N 64) in bf16 and f32,
+    T = 128, hd 64 with N 32, hd = N = 128, no decay and decays near -20;
+    each case twice (bitwise), within the stated limits, and timed beside
+    its bound;
+17. zamba2-7b-smoke's prefill and decode steps on the card against the
+    CPU: 2 layers in bf16, and 7 layers with the shared block every 3 in
+    f32 (bf16 logged);
+18. the hybrid serving path: full-width, full-depth zamba2-7b (81 Mamba2
+    layers, the shared attention block 14 times), batch 4, prompt 4096, 32
+    tokens, greedy, through ``repro_torch.launch.serve.main`` (``--engine
+    loop``); launch counters zeroed just before and read just after (K10
+    once per Mamba2 layer of the prefill);
+19. one batch-1 prefill of that model and one decode step after it, each
+    under ``torch.profiler``.
 
 The last three lines of standard output are the kernels' JSON record, the
 card's name and power limit, and the result ``{"ok": true, "device":
@@ -1230,6 +1245,60 @@ def run_serve(torch, kernels):
     return counts, out
 
 
+def device_groups(torch, prof, patterns, range_name, range_group):
+    """Device time (us) and kernel count by group from a profile: kernels
+    that a torch op inside the ``range_name`` profiler range launched form
+    ``range_group``; the rest go to the first group of ``patterns`` whose
+    name pattern they match, else "other".  Also returns every kernel's
+    time and count by name (kernels launched through ctypes, not by a
+    torch op, appear only in these device rows)."""
+    def ranged(event, inside):
+        inside = inside or event.name == range_name
+        for k in event.kernels if inside else ():
+            yield k
+        for child in event.cpu_children:
+            yield from ranged(child, inside)
+
+    per_name = {}
+    for e in prof.key_averages():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)
+                and e.self_device_time_total > 0):
+            per_name[e.key] = (e.self_device_time_total, e.count)
+    in_range = {}
+    for root in prof.events():
+        if root.device_type == torch.autograd.DeviceType.CPU and \
+                root.cpu_parent is None:
+            for k in ranged(root, False):
+                t, c = in_range.get(k.name, (0.0, 0))
+                in_range[k.name] = (t + k.duration, c + 1)
+    groups = {}
+    for name, (us, count) in per_name.items():
+        r_us, r_count = in_range.get(name, (0.0, 0))
+        r_us, r_count = min(r_us, us), min(r_count, count)
+        group = next((g for g, pats in patterns
+                      if any(p in name for p in pats)), "other")
+        for g, t, c in ((group, us - r_us, count - r_count),
+                        (range_group, r_us, r_count)):
+            if c:
+                have_t, have_c = groups.get(g, (0.0, 0))
+                groups[g] = (have_t + t, have_c + c)
+    return groups, per_name
+
+
+def log_groups(title, wall, groups, per_name) -> None:
+    busy_us = sum(t for t, _ in groups.values())
+    n_kernels = sum(c for _, c in groups.values())
+    log(f"{title}: wall {wall * 1e3:.2f} ms (profiler on), device kernels "
+        f"{busy_us / 1e3:.3f} ms ({busy_us / 1e3 / (wall * 1e3):.3f} of "
+        f"wall), {n_kernels} kernels")
+    for group, (us, count) in sorted(groups.items(), key=lambda g: -g[1][0]):
+        log(f"  group {group:<24s} {us / 1e3:9.3f} ms  x{count}")
+    for name, (us, count) in sorted(per_name.items(),
+                                    key=lambda r: -r[1][0])[:12]:
+        log(f"  {us / 1e3:9.3f} ms  x{count:<5d} {name[:100]}")
+
+
 def profile_serve(torch, engine) -> None:
     """Phase 15: one steady decode step of the phase-14 engine (4 active
     slots, the same window gather) under torch.profiler.  Device kernels
@@ -1254,51 +1323,308 @@ def profile_serve(torch, engine) -> None:
         wall = time.perf_counter() - t0
     for rid in range(4):
         engine.finish(100 + rid)
+    log_groups("profile serve decode step", wall, *device_groups(
+        torch, prof, SERVE_GROUPS, "moe_dispatch", "MoE dispatch"))
 
-    def moe_kernels(event, in_moe):
-        in_moe = in_moe or event.name == "moe_dispatch"
-        for k in event.kernels if in_moe else ():
-            yield k
-        for child in event.cpu_children:
-            yield from moe_kernels(child, in_moe)
 
-    # every device kernel by name (K9 is launched through ctypes, not by a
-    # torch op, so only the device rows see it), less those that a torch
-    # op inside the moe_dispatch range launched
-    per_name = {}
-    for e in prof.key_averages():
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-                and not getattr(e, "is_user_annotation", False)
-                and e.self_device_time_total > 0):
-            per_name[e.key] = (e.self_device_time_total, e.count)
-    moe = {}
-    for root in prof.events():
-        if root.device_type == torch.autograd.DeviceType.CPU and \
-                root.cpu_parent is None:
-            for k in moe_kernels(root, False):
-                t, c = moe.get(k.name, (0.0, 0))
-                moe[k.name] = (t + k.duration, c + 1)
-    groups = {}
-    for name, (us, count) in per_name.items():
-        m_us, m_count = moe.get(name, (0.0, 0))
-        m_us, m_count = min(m_us, us), min(m_count, count)
-        group = next((g for g, pats in SERVE_GROUPS
-                      if any(p in name for p in pats)), "other")
-        for g, t, c in ((group, us - m_us, count - m_count),
-                        ("MoE dispatch", m_us, m_count)):
-            if c:
-                have_t, have_c = groups.get(g, (0.0, 0))
-                groups[g] = (have_t + t, have_c + c)
-    busy_us = sum(t for t, _ in groups.values())
-    n_kernels = sum(c for _, c in groups.values())
-    log(f"profile serve decode step: wall {wall * 1e3:.2f} ms (profiler "
-        f"on), device kernels {busy_us / 1e3:.3f} ms "
-        f"({busy_us / 1e3 / (wall * 1e3):.3f} of wall), {n_kernels} kernels")
-    for group, (us, count) in sorted(groups.items(), key=lambda g: -g[1][0]):
-        log(f"  group {group:<24s} {us / 1e3:9.3f} ms  x{count}")
-    for name, (us, count) in sorted(per_name.items(),
-                                    key=lambda r: -r[1][0])[:12]:
-        log(f"  {us / 1e3:9.3f} ms  x{count:<5d} {name[:100]}")
+# ---------------------------------------------------------------------------
+# phases 16-19: serving the Mamba2 hybrid (zamba2-7b)
+# ---------------------------------------------------------------------------
+
+# K10 at the serving path's shape: batch 4, prompt 4096, 64 heads of 112,
+# state 64 (chunk 128)
+SSD_PATH = (4, 4096, 64, 112, 64)
+# (shape, dtype, log-decays): the path's shape in bf16 and f32; one chunk;
+# hd 64 and N 32; the largest hd and N the kernel takes (231,936 bytes of
+# shared memory); no decay; decays near -20 (exp underflows across a chunk)
+SSD_CASES = ((SSD_PATH, "bfloat16", "u"), (SSD_PATH, "float32", "u"),
+             ((4, 128, 64, 112, 64), "bfloat16", "u"),
+             ((4, 256, 64, 64, 32), "bfloat16", "u"),
+             ((2, 256, 8, 128, 128), "float32", "u"),
+             (SSD_PATH, "bfloat16", "zero"), (SSD_PATH, "bfloat16", "-20"))
+# K10 against its plain version, element by element.  f32 y and the state:
+# within SSD_REL of the plain version's largest magnitude (an H100 80GB
+# HBM3 read 8.5e-7 for y and for the state at the path's shape:
+# the two sum in other orders and take exp of cumsums summed in other
+# orders).  bf16 y: that f32 limit plus one bf16 rounding step, 2^-7
+# |plain|: both round an f32 result once, and two f32 results d apart
+# round at most d + 2^-7 |y| apart.  One rounding step alone, 1e-5 +
+# 2^-7 |plain|, fails where |y| is near 0 (the elements over it are
+# counted and logged).
+SSD_REL = 4e-6
+BF16_FLOPS_PER_S = 989e12           # H100 SXM dense bf16 tensor cores
+HYBRID_PROMPT, HYBRID_GEN, HYBRID_BATCH = 4096, 32, 4
+# phase 17: zamba2-7b-smoke card against CPU.  Its default 2 layers in
+# bf16 within HYBRID_BF16_TOL (the size of a difference in bf16 rounding
+# order: the port against the reference on the CPU read 0.019; an H100
+# 80GB HBM3 read 4.8e-7); 7 layers with the shared block every 3 in f32
+# compute within HYBRID_F32_TOL (the H100 read 2.05e-4); the 7-layer bf16
+# reading is logged only: the shared block's random weights make its
+# attention nearly one-hot, so one bf16 rounding step can flip which key
+# wins (the reference's own jitted and eager forwards differ there by
+# 1.38; the H100 read 0.183)
+HYBRID_BF16_TOL, HYBRID_F32_TOL = 0.05, 1e-3
+HYBRID_GROUPS = (
+    ("K10 ssd_chunked", ("ssd_chunk_kernel",)),
+    ("matmul", ("nvjet", "gemm", "gemv", "xmma", "cutlass", "cublas",
+                "sm90_", "sm80_")),
+)
+
+
+def ssd_inputs(torch, dev, gen, shape, dtype, decay):
+    b, t, h, hd, n = shape
+    dt = getattr(torch, dtype)
+    x = torch.randn((b, t, h, hd), generator=gen, device=dev).to(dt)
+    if decay == "u":
+        a = -0.1 * torch.rand((b, t, h), generator=gen, device=dev)
+    elif decay == "zero":
+        a = torch.zeros((b, t, h), device=dev)
+    else:
+        a = -20.0 - torch.rand((b, t, h), generator=gen, device=dev)
+    bm = torch.randn((b, t, n), generator=gen, device=dev).to(dt)
+    cm = torch.randn((b, t, n), generator=gen, device=dev).to(dt)
+    return x, a, bm, cm
+
+
+def ssd_bytes_flops(shape, es, chunk=128):
+    """Bytes K10's function moves (x, a, B, C read once; y and the state
+    written once) and the operations it needs: per (b, chunk) the lower
+    triangle of C B^T (shared by the heads); per (b, h, chunk) the lower
+    triangle of A X, C S^T (after the first chunk) and X^T (B decay)."""
+    b, t, h, hd, n = shape
+    c = min(chunk, t)
+    nc, tri = t // c, c * (c + 1) // 2
+    nbytes = 2 * b * t * h * hd * es + 4 * b * t * h + 2 * b * t * n * es \
+        + 4 * b * h * hd * n
+    flops = 2.0 * b * nc * tri * n + 2.0 * b * h * (
+        nc * tri * hd + (nc - 1) * c * n * hd + nc * hd * n * c)
+    return nbytes, flops
+
+
+def check_ssd(torch, dev, gen, records):
+    """Phase 16: K10 against ssd_plain on the card."""
+    from repro_torch.kernels.ssd.kernel import ssd_chunked
+    from repro_torch.kernels.ssd.ref import ssd_plain
+    worst = 0.0
+    for shape, dtype, decay in SSD_CASES:
+        args = ssd_inputs(torch, dev, gen, shape, dtype, decay)
+        y, s = ssd_chunked(*args)
+        y2, s2 = ssd_chunked(*args)
+        py, ps = ssd_plain(*args)
+        torch.cuda.synchronize()
+        ymax = float(py.float().abs().max())
+        smax = float(ps.abs().max())
+        atol = SSD_REL * ymax
+        rtol = 2.0 ** -7 if dtype == "bfloat16" else 0.0
+        err = (y.float() - py.float()).abs()
+        over = float((err / (atol + rtol * py.float().abs())).max())
+        s_err = float((s - ps).abs().max())
+        s_over = s_err / (SSD_REL * smax) if smax else float(s_err > 0)
+        same = torch.equal(y, y2) and torch.equal(s, s2)
+        finite = bool(torch.isfinite(y.float()).all()
+                      and torch.isfinite(s).all())
+        y_err = float(err.max())
+        one_step = int((err > 1e-5 + 2.0 ** -7 * py.float().abs()).sum())
+        if dtype == "bfloat16":
+            worst = max(worst, y_err)
+        tag = f"(B, T, H, hd, N) = {shape} {dtype} a={decay}"
+        log(f"check ssd_chunked {tag}: y max_abs_err {y_err} (max |plain| "
+            f"{ymax}; largest error over its limit {over}, limit "
+            f"{SSD_REL} max|plain| + {rtol} |plain|; {one_step} of "
+            f"{py.numel()} elements over 1e-5 + 2^-7 |plain| alone), "
+            f"state max_abs_err "
+            f"{s_err} ({s_over} of {SSD_REL} max|plain| = {smax}), "
+            f"run-to-run bitwise {same}, finite {finite}")
+        require(over <= 1 and s_over <= 1 and same and finite,
+                f"ssd_chunked {tag} != plain version")
+        if shape == SSD_PATH and decay == "u":
+            ms, call = device_ms(torch, lambda: ssd_chunked(*args))
+            plain, _ = device_ms(torch, lambda: ssd_plain(*args), iters=5)
+            nbytes, flops = ssd_bytes_flops(shape, y.element_size())
+            rate = BF16_FLOPS_PER_S if dtype == "bfloat16" \
+                else FP32_FLOPS_PER_S
+            t_bytes = bound_ms(nbytes)
+            t_ops = flops / rate * 1e3
+            bnd, by = (t_bytes, "bytes") if t_bytes >= t_ops \
+                else (t_ops, "operations")
+            log(f"time ssd_chunked {tag}: kernel {ms:.4f} ms on the device "
+                f"({call:.4f} ms a call from the host), plain {plain:.4f} "
+                f"ms, bound {bnd:.4f} ms ({by}; {nbytes} bytes, {flops:.4e} "
+                f"operations at {rate:.3g}/s = {t_ops:.4f} ms); no single "
+                f"PyTorch call computes the chunked scan")
+            if dtype == "bfloat16":
+                records[ssd_chunked.name] = dict(
+                    name=ssd_chunked.name, route="cuda",
+                    source=ssd_chunked.source,
+                    replaces=ssd_chunked.replaces, ms=ms, plain_ms=plain,
+                    bound_ms=bnd, bound_by=by, library_ms=None,
+                    shape=list(shape))
+        del args, y, y2, s, s2, py, ps, err
+        torch.cuda.empty_cache()
+    records[ssd_chunked.name]["max_abs_err"] = worst
+
+
+def check_small_hybrid(torch, dev):
+    """Phase 17: zamba2-7b-smoke's prefill and 4 teacher-forced decode
+    steps on the card against the same code on the CPU, with TF32 and
+    reduced-precision bf16 reductions off."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.params import init_serving_params
+
+    def steps(cfg, params, d, toks, feed):
+        p = T.tree_map(lambda a: a.to(d), params)
+        lg, cache = TF.prefill(cfg, p, {"tokens": torch.tensor(
+            toks, device=d)}, toks.shape[1] + len(feed))
+        out = [lg.float().cpu()]
+        for f in feed:
+            lg, cache = TF.decode_step(cfg, p, cache, torch.tensor(
+                f, device=d))
+            out.append(lg.float().cpu())
+        return out
+
+    base = get_config("zamba2-7b-smoke")
+    seven = dataclasses.replace(base, n_layers=7, shared_attn_every=3)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, base.vocab_size, (2, 256)).astype(np.int32)
+    feed = rng.integers(0, base.vocab_size, (4, 2, 1)).astype(np.int32)
+    set_matmul_precision(torch, False)
+    compute = TF.COMPUTE_DTYPE
+    try:
+        for cfg, dtype, tol in ((base, torch.bfloat16, HYBRID_BF16_TOL),
+                                (seven, torch.float32, HYBRID_F32_TOL),
+                                (seven, torch.bfloat16, None)):
+            TF.COMPUTE_DTYPE = dtype
+            params = init_serving_params(
+                TF.model_defs(cfg), torch.Generator().manual_seed(0), "cpu")
+            cpu = steps(cfg, params, "cpu", toks, feed)
+            card = steps(cfg, params, dev, toks, feed)
+            err = max(float((a - b).abs().max()) for a, b in zip(cpu, card))
+            finite = all(bool(torch.isfinite(a).all()) for a in card)
+            log(f"check hybrid steps {cfg.name} n_layers {cfg.n_layers} "
+                f"shared every {cfg.shared_attn_every}, compute {dtype}, "
+                f"card vs cpu, prefill of 256 + 4 teacher-forced decode "
+                f"steps: logits max_abs_err {err} (tol "
+                f"{tol if tol else 'none: logged only'}; max |logit| "
+                f"{max(float(a.abs().max()) for a in cpu)})")
+            require(finite, f"{cfg.name}: non-finite logits on the card")
+            require(tol is None or err <= tol,
+                    f"{cfg.name}: hybrid logits differ card vs cpu")
+    finally:
+        TF.COMPUTE_DTYPE = compute
+
+
+def hybrid_argv():
+    return ["--arch", "zamba2-7b", "--engine", "loop", "--batch",
+            str(HYBRID_BATCH), "--prompt-len", str(HYBRID_PROMPT), "--gen",
+            str(HYBRID_GEN), "--device", "cuda", "--seed", "0"]
+
+
+def run_hybrid_serve(torch, kernels):
+    """Phase 18: zamba2-7b at full width and depth through the serving
+    launcher's loop, with the launch counters zeroed just before; every
+    sampled step's logits are checked finite on the device."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist import train as DT
+    from repro_torch.launch import serve
+
+    cfg = get_config("zamba2-7b")
+    argv = hybrid_argv()
+    log(f"hybrid path: python -m repro_torch.launch.serve {' '.join(argv)} "
+        f"({cfg.n_layers} Mamba2 layers, shared attention every "
+        f"{cfg.shared_attn_every}; {cfg.param_count()} parameters by "
+        f"param_count)")
+    total = torch.cuda.get_device_properties(0).total_memory
+    left = torch.cuda.memory_allocated()
+    log(f"hybrid path: memory allocated before loading {left} bytes")
+    require(left < 2 ** 30, "earlier phases left memory allocated")
+    finite = []
+    sample_tokens = DT.sample_tokens
+
+    def checked(logits, sc, gen=None):
+        finite.append(torch.isfinite(logits).all())
+        return sample_tokens(logits, sc, gen)
+
+    torch.cuda.reset_peak_memory_stats()
+    DT.sample_tokens = checked
+    try:
+        for k in kernels:
+            k.launches = 0
+        out = serve.main(argv)
+        counts = {k.name: k.launches for k in kernels}
+    finally:
+        DT.sample_tokens = sample_tokens
+    peak = torch.cuda.max_memory_allocated()
+    toks = out["tokens"]
+    prefill_s = out["prefill_s"][0]
+    decode_s = out["wall_s"] - prefill_s
+    n_tok = sum(len(t) for t in toks)
+    log(f"hybrid path: {len(toks)} sequences x {HYBRID_GEN} tokens, wall "
+        f"{out['wall_s']:.4f} s; prefill {prefill_s:.4f} s (CUDA events, "
+        f"{HYBRID_BATCH} x {HYBRID_PROMPT} tokens); decode "
+        f"{(HYBRID_GEN - 1) / decode_s:.4f} steps/s ({HYBRID_GEN - 1} steps "
+        f"in {decode_s:.4f} s); {n_tok / out['wall_s']:.4f} tokens/s end to "
+        f"end; peak memory {peak} bytes ({peak / total:.4f} of {total}); "
+        f"launches {json.dumps(counts)}")
+    require(counts["ssd_chunked"] == cfg.n_layers,
+            f"ssd_chunked launched {counts['ssd_chunked']} times, not "
+            f"{cfg.n_layers} (one batched prefill)")
+    require(all(c == 0 for n, c in counts.items() if n != "ssd_chunked"),
+            "a kernel off the hybrid serving path was launched")
+    require(len(toks) == HYBRID_BATCH and all(
+        len(t) == HYBRID_GEN and int(t.min()) >= 0
+        and int(t.max()) < cfg.vocab_size for t in toks),
+        "a sequence did not complete with in-vocab tokens")
+    require(len(finite) == HYBRID_GEN and all(bool(f) for f in finite),
+            "non-finite logits on the hybrid serving path")
+    require(peak <= 0.9 * total, "peak memory above 90% of the card")
+    return counts
+
+
+def profile_hybrid(torch) -> None:
+    """Phase 19: one batch-1 prefill of the phase-18 model (4096 tokens)
+    and one decode step after it, each under torch.profiler, device time
+    grouped as K10, attention (kernels that a torch op inside the
+    ``shared_attention`` range launched), matmul and other."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist.train import make_decode_step, make_prefill_step
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.params import init_serving_params
+
+    dev = torch.device("cuda")
+    cfg = get_config("zamba2-7b")
+    params = init_serving_params(
+        TF.model_defs(cfg), torch.Generator(device=dev).manual_seed(0), dev)
+    toks = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, HYBRID_PROMPT)).astype(np.int32)
+    batch = {"tokens": torch.tensor(toks, device=dev)}
+    prefill = make_prefill_step(cfg, HYBRID_PROMPT + HYBRID_GEN)
+    decode = make_decode_step(cfg)
+    tok, cache = prefill(params, batch)              # warm-up
+    tok, cache = decode(params, cache, tok[:, None])
+    torch.cuda.synchronize()
+    for title, step in (
+            (f"profile hybrid prefill (batch 1 x {HYBRID_PROMPT})",
+             lambda: prefill(params, batch)),
+            ("profile hybrid decode step (batch 1)",
+             lambda: decode(params, cache, tok[:, None]))):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        log_groups(title, wall, *device_groups(
+            torch, prof, HYBRID_GROUPS, "shared_attention", "attention"))
+    del params, cache
 
 
 def main() -> int:
@@ -1311,6 +1637,7 @@ def main() -> int:
     from repro_torch.kernels import (_build, all_kernels, main_path_kernels,
                                      sim_kernels)
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1390,6 +1717,21 @@ def main() -> int:
         "swa_decode_attention"]
     profile_serve(torch, served["engine"])
     del served
+
+    # the Mamba2 hybrid: K10, the small card-vs-CPU check, then full-width,
+    # full-depth zamba2-7b with every kernel's counter zeroed just before
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_ssd(torch, dev, gen, records)
+    check_small_hybrid(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = run_hybrid_serve(torch, all_kernels())
+    records["ssd_chunked"]["launches"] = counts["ssd_chunked"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    profile_hybrid(torch)
+    log(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -2,7 +2,9 @@
 
 The dataclass carries every field of the reference's ``ArchConfig`` so a
 parity test can compare the two field by field; the port runs the
-uniform-window attention stack (``block_type == "attn"``), dense or MoE.
+uniform-window attention stack (``block_type == "attn"``), dense or MoE,
+and the Mamba2 stack (``"mamba2"``) with or without the shared attention
+block.
 """
 from __future__ import annotations
 
@@ -88,18 +90,28 @@ class ArchConfig:
         return out
 
     def param_count(self) -> int:
-        """Analytic parameter count of an attention stack (dense or MoE)."""
+        """Analytic parameter count, term for term the reference's: the
+        attention stack (dense or MoE) and the Mamba2 stack with its shared
+        attention block (the reference leaves out the Mamba2 dt, conv and
+        per-head leaves, and the norm scales of the shared block)."""
         d, v = self.d_model, self.vocab_size
         n = v * d if self.tie_embeddings else 2 * v * d
         hd = self.resolved_head_dim
-        per_layer = (d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
-                     + self.n_heads * hd * d + 2 * d)
-        if self.is_moe:
-            per_layer += (self.n_experts * 3 * d * self.expert_d_ff
-                          + d * self.n_experts)
+        if self.block_type == BLOCK_MAMBA2:
+            di = self.ssm_expand * d
+            per_layer = d * (2 * di + 2 * self.ssm_state) + di * d + 2 * d
         else:
-            per_layer += 3 * d * self.d_ff
-        return n + self.n_layers * per_layer
+            per_layer = (d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
+                         + self.n_heads * hd * d + 2 * d)
+            if self.is_moe:
+                per_layer += (self.n_experts * 3 * d * self.expert_d_ff
+                              + d * self.n_experts)
+            else:
+                per_layer += 3 * d * self.d_ff
+        n += self.n_layers * per_layer
+        if self.shared_attn_every:
+            n += 4 * d * d + 3 * d * self.d_ff
+        return n
 
     def reduced(self) -> "ArchConfig":
         """Tiny same-family variant for CPU tests (2 layers, d_model<=128)."""

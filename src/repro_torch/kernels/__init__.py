@@ -1,11 +1,12 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch
 version: ``topk_ef`` (K1, CUDA C++), the ``cr_reduce`` deposits (K2 CUDA
 C++, K3 Triton), ``sim_step`` (K6 ``delivery_step`` and K7 ``sync_step``,
-CUDA C++), ``onebit_ef`` (K8, Triton) and ``swa_attention`` (K9
-``swa_decode_attention``, CUDA C++).  :func:`main_path_kernels` lists the
-training path's wrappers, :func:`sim_kernels` the simulator's,
-:func:`serve_kernels` the serving path's and :func:`all_kernels` every
-one."""
+CUDA C++), ``onebit_ef`` (K8, Triton), ``swa_attention`` (K9
+``swa_decode_attention``, CUDA C++) and ``ssd`` (K10 ``ssd_chunked``, CUDA
+C++).  :func:`main_path_kernels` lists the training path's wrappers,
+:func:`sim_kernels` the simulator's, :func:`serve_kernels` the paged
+serving path's, :func:`hybrid_kernels` the Mamba2 serving path's and
+:func:`all_kernels` every one."""
 
 
 def main_path_kernels():
@@ -32,10 +33,18 @@ def serve_kernels():
     return [swa_decode_attention]
 
 
+def hybrid_kernels():
+    """The kernel wrappers the Mamba2 (zamba2) serving path launches: K10
+    on every Mamba2 layer of the prefill."""
+    from repro_torch.kernels.ssd.kernel import ssd_chunked
+    return [ssd_chunked]
+
+
 def all_kernels():
     """Every kernel wrapper of the port, each once."""
     out = []
-    for k in main_path_kernels() + sim_kernels() + serve_kernels():
+    for k in (main_path_kernels() + sim_kernels() + serve_kernels()
+              + hybrid_kernels()):
         if k not in out:
             out.append(k)
     return out

@@ -29,6 +29,7 @@ SOURCES = {
     "topk_cr_deposit.cu",
     "sim_step": KERNELS_DIR / "sim_step" / "csrc" / "sim_step.cu",
     "swa_decode": KERNELS_DIR / "swa_attention" / "csrc" / "swa_decode.cu",
+    "ssd_chunked": KERNELS_DIR / "ssd" / "csrc" / "ssd_chunked.cu",
 }
 
 _LOCK = threading.Lock()

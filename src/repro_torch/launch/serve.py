@@ -9,9 +9,13 @@ the dense legacy loop or the continuous-batching engine.
     python -m repro_torch.launch.serve --arch qwen3-1.7b-smoke \\
         --engine loop --prompt-len 32 --gen 16 --batch 4
 
+    # the Mamba2 hybrid serves through the loop only (no paged engine)
+    python -m repro_torch.launch.serve --arch zamba2-7b-smoke \\
+        --engine loop --prompt-len 32 --gen 16 --batch 4
+
 ``--device`` defaults to ``cuda``; without a card the launcher raises unless
 ``--device cpu`` is given.  Weights are random, drawn from a
-``torch.Generator`` seeded with ``--seed`` and held in bf16 (norm scales
+``torch.Generator`` seeded with ``--seed`` and held in bf16 (vectors
 f32); prompts come from ``np.random.default_rng(--seed)``.  Both engines
 keep every step's tokens on the device and fetch them once at the end.
 ``--temperature/--top-k`` switch both from greedy to sampled decoding.
@@ -60,14 +64,24 @@ def _run_loop(args, cfg, params, sample, device):
     prefill = make_prefill_step(cfg, max_len, sample)
     decode = make_decode_step(cfg, sample)
     gen = torch.Generator(device=device).manual_seed(args.seed + 1)
-    tok, cache = prefill(params, {"tokens": torch.tensor(tokens,
-                                                         device=device)},
-                         gen)
+    batch = {"tokens": torch.tensor(tokens, device=device)}
+    cuda = device.type == "cuda"
+    if cuda:
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        marks[0].record()
+    t0 = time.perf_counter()
+    tok, cache = prefill(params, batch, gen)
+    if cuda:
+        marks[1].record()
+    prefill_s = time.perf_counter() - t0
     out = [tok]                     # device tensors; fetched once at the end
     for _ in range(args.gen - 1):
         tok, cache = decode(params, cache, tok[:, None], gen)
         out.append(tok)
-    return list(torch.stack(out, dim=1).cpu().numpy()), None, None
+    toks = list(torch.stack(out, dim=1).cpu().numpy())
+    if cuda:
+        prefill_s = marks[0].elapsed_time(marks[1]) / 1e3
+    return toks, None, None, [prefill_s]
 
 
 def _run_continuous(args, cfg, params, sample, device):
@@ -101,14 +115,16 @@ def _run_continuous(args, cfg, params, sample, device):
           f"p99={st['p99']:.0f} latency steps, rejected={sched.rejected} "
           f"rejected_frac={st['rejected_frac']:.3f}", flush=True)
     gen = [toks.get(i, np.zeros((0,), np.int32)) for i in range(len(lens))]
-    return gen, engine, sched
+    secs = engine.prefill_seconds()
+    return gen, engine, sched, [secs[i] for i in range(len(lens))]
 
 
 def main(argv=None, *, cfg=None) -> dict:
     """Serve as configured; returns ``{"tokens": [per-request int32
     arrays], "engine", "scheduler" (continuous only, else None), "wall_s",
-    "prefill_s" (per request, continuous only)}``.  ``cfg`` (an
-    ``ArchConfig``) overrides ``--arch``."""
+    "prefill_s"}``: seconds per request (continuous), or one entry for the
+    loop's batched prefill; on a card from CUDA events on the stream.
+    ``cfg`` (an ``ArchConfig``) overrides ``--arch``."""
     args = _parse(argv)
     if args.devices > 1:
         raise NotImplementedError(
@@ -138,14 +154,10 @@ def main(argv=None, *, cfg=None) -> dict:
               if args.temperature > 0 else SampleConfig())
     t0 = time.perf_counter()
     run = _run_loop if args.engine == "loop" else _run_continuous
-    gen, engine, sched = run(args, cfg, params, sample, device)
+    gen, engine, sched, prefill_s = run(args, cfg, params, sample, device)
     wall = time.perf_counter() - t0
     for i, seq_tokens in enumerate(gen):
         print(f"seq {i}: {list(map(int, seq_tokens))}", flush=True)
-    prefill_s = None
-    if engine is not None:
-        secs = engine.prefill_seconds()
-        prefill_s = [secs[i] for i in range(len(gen))]
     return {"tokens": gen, "engine": engine, "scheduler": sched,
             "wall_s": wall, "prefill_s": prefill_s}
 

@@ -13,7 +13,8 @@ size 1, so every spec is all-``None``.
 Serving holds every matrix in the compute dtype
 (:func:`init_serving_params`): each use of a matrix casts it to bf16 first,
 so bf16-held leaves give bitwise the same operands as f32-held ones, at
-half the memory.  Norm scales stay f32.
+half the memory.  Vectors (norm scales; Mamba2's ``a_log``, ``dt_bias``,
+``d_skip`` and conv biases) stay f32.
 """
 from __future__ import annotations
 
@@ -99,8 +100,8 @@ def _is_matrix(d: ParamDef) -> bool:
 
 
 def init_serving_params(defs, gen: torch.Generator, device=None):
-    """Materialize a ParamDef tree for serving: matrices in bfloat16, norm
-    scales in float32, leaves drawn in leaf order.  A stacked leaf is drawn
+    """Materialize a ParamDef tree for serving: matrices in bfloat16,
+    vectors in float32, leaves drawn in leaf order.  A stacked leaf is drawn
     layer by layer into its preallocated tensor, so no float32 copy of a
     whole stacked leaf ever exists (``w_gate`` of mixtral-8x7b at 24
     layers is 11.3 G entries, 45 GB in float32)."""

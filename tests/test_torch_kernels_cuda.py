@@ -339,3 +339,63 @@ def test_swa_decode_kernel_checks_and_counts(cuda):
         swa_decode_attention(q, k.transpose(1, 2), v, pos, base)
     with pytest.raises(ValueError):
         swa_decode_attention(q.cpu(), k, v, pos, base)
+
+
+# ---------------------------------------------------------------------------
+# the hybrid serving path: ssd_chunked (K10)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((4, 4096, 64, 112, 64), "bfloat16"), ((2, 256, 8, 112, 64), "float32"),
+    ((1, 8, 4, 16, 16), "float32"), ((2, 256, 8, 128, 128), "bfloat16")])
+def test_ssd_chunked_kernel_matches_plain(cuda, shape, dtype):
+    """The hybrid serving path's shape and smaller ones, bitwise from run
+    to run.  y and the state within 4e-6 of the plain version's largest
+    magnitude (f32 sums in other orders); bf16 y also within one bf16
+    rounding step, 2^-7 |plain| (see chip_smoke.py's SSD_REL)."""
+    from repro_torch.kernels.ssd.kernel import ssd_chunked
+    from repro_torch.kernels.ssd.ref import ssd_plain
+    b, t, h, hd, n = shape
+    rng = np.random.default_rng(t + hd)
+    dt = getattr(torch, dtype)
+
+    def arr(*s):
+        return torch.from_numpy(rng.standard_normal(s).astype(np.float32)
+                                ).to(cuda)
+
+    x, bm, cm = arr(b, t, h, hd).to(dt), arr(b, t, n).to(dt), \
+        arr(b, t, n).to(dt)
+    a = -0.1 * torch.from_numpy(rng.uniform(size=(b, t, h)).astype(
+        np.float32)).to(cuda)
+    before = ssd_chunked.launches
+    y, s = ssd_chunked(x, a, bm, cm)
+    y2, s2 = ssd_chunked(x, a, bm, cm)
+    py, ps = ssd_plain(x, a, bm, cm)
+    torch.cuda.synchronize()
+    assert ssd_chunked.launches == before + 2
+    assert y.dtype == dt and s.dtype == torch.float32
+    assert torch.equal(y, y2) and torch.equal(s, s2)
+    rtol = 2.0 ** -7 if dtype == "bfloat16" else 0.0
+    limit = 4e-6 * py.float().abs().max() + rtol * py.float().abs()
+    assert bool(((y.float() - py.float()).abs() <= limit).all())
+    assert float((s - ps).abs().max()) <= 4e-6 * float(ps.abs().max())
+
+
+def test_ssd_chunked_kernel_raises_on_what_it_does_not_take(cuda):
+    from repro_torch.kernels.ssd import ops as SSD
+    from repro_torch.kernels.ssd.kernel import ssd_chunked
+    x = torch.randn((1, 256, 2, 16), device=cuda)
+    a = -torch.rand((1, 256, 2), device=cuda)
+    bm = torch.randn((1, 256, 8), device=cuda)
+    for bad in ((x.to(torch.bfloat16), a, bm, bm),          # mixed dtypes
+                (x, a.to(torch.bfloat16), bm, bm),          # a not f32
+                (x.transpose(1, 2), a, bm, bm),             # not contiguous
+                (x[:, :200].contiguous(), a[:, :200].contiguous(),
+                 bm[:, :200].contiguous(), bm[:, :200].contiguous()),
+                (torch.randn((1, 256, 2, 200), device=cuda), a, bm, bm)):
+        with pytest.raises(ValueError):
+            ssd_chunked(*bad)
+    with pytest.raises(NotImplementedError):       # no backward kernel
+        ssd_chunked(x.requires_grad_(), a, bm, bm)
+    y, _ = SSD.ssd(x.detach(), a, bm, bm)          # CUDA: the kernel
+    assert y.is_cuda
