@@ -68,7 +68,26 @@ Phases (any failure exits non-zero):
     loop``); launch counters zeroed just before and read just after (K10
     once per Mamba2 layer of the prefill);
 19. one batch-1 prefill of that model and one decode step after it, each
-    under ``torch.profiler``.
+    under ``torch.profiler``;
+20. the synchronous sync's reduces against their plain versions:
+    ``topk_cr_reduce`` (K4) at the path's panels (S = 2 ``topk_ef``
+    payloads, M = 1, R of ``w_gate`` and of ``wk``, k = R/16, values in
+    bf16 and in f32), S = 4 messages sharing every index, and M = 24, R =
+    257, k = 1 with a zero weight and an ``inf`` under a zero weight;
+    ``onebit_cr_reduce`` (K5) at the same panels with one-bit payloads;
+    each case twice (bitwise, and bitwise against the plain version), and
+    timed beside its bound (K4 also beside ``index_put_``);
+21. qwen3-1.7b-smoke with 2 workers, 2 steps of each of ``--sync
+    topk_ef``, ``onebit_ef`` and ``elastic`` on the card against the same
+    code on the CPU: the sync/update half fed the same gradients, and the
+    whole step's losses;
+22. the synchronous path: full-width qwen3-1.7b, ``--sync topk_ef
+    --topk-ratio 1/16``, 2 workers, seq 256, batch 4, 4 steps through
+    ``repro_torch.launch.train.main`` (exactly 104 ``topk_ef`` and 52
+    ``topk_cr_reduce`` launches), then 2 steps of ``--sync onebit_ef``
+    (26 ``onebit_cr_reduce``) and 2 of ``--sync elastic``; launch counters
+    zeroed just before each run and read just after;
+23. one ``topk_ef`` sync step under ``torch.profiler``.
 
 The last three lines of standard output are the kernels' JSON record, the
 card's name and power limit, and the result ``{"ok": true, "device":
@@ -96,6 +115,8 @@ PROFILE_GROUPS = (
                     "write_kernel")),
     ("K2 topk_cr_deposit", ("deposit_kernel",)),
     ("K3 onebit_cr_deposit", ("onebit_deposit",)),
+    ("K4 topk_cr_reduce", ("topk_reduce_",)),
+    ("K5 onebit_cr_reduce", ("onebit_reduce",)),
     ("matmul", ("gemm", "xmma", "cutlass", "cublas", "sm90_", "sm80_")),
     ("copy / cast", ("copy", "Memcpy", "Memset")),
     ("elementwise / reduce", ("elementwise", "reduce", "softmax",
@@ -416,19 +437,24 @@ def run_path(torch, kernels, compressor: str, steps: int):
     return counts
 
 
-def profile_step(torch) -> None:
-    """Where a main-path step's device time goes: the full-width
-    configuration of phase 4 built through the same public functions, one
-    warm-up step, then one step under ``torch.profiler``; prints device
-    time by kernel and the device-busy share of the step's wall time."""
+def profile_step(torch, title: str = "profile step", sync=None) -> None:
+    """Where a training step's device time goes: full-width qwen3-1.7b as
+    phase 4 (``sync=None``: the async top-k step) or phase 22 (``sync``:
+    that synchronous strategy, 2 workers) builds it, through the same
+    public functions; one warm-up step, then one step under
+    ``torch.profiler``; prints device time by kernel group and the
+    device-busy share of the step's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import tree as T
     from repro_torch.configs import get_config
+    from repro_torch.core.scheduler import SyncConfig
     from repro_torch.data.pipeline import SyntheticLMDataset, to_device
     from repro_torch.dist.async_engine import (AsyncConfig,
                                                init_async_state,
                                                make_async_train_step)
+    from repro_torch.dist.train import (init_dist_sync_state,
+                                        make_elastic_train_step)
     from repro_torch.models import transformer as TF
     from repro_torch.models.params import init_params, param_specs
     from repro_torch.optim import constant, momentum
@@ -441,10 +467,15 @@ def profile_step(torch) -> None:
                          dev)
     opt = momentum(constant(3e-3), 0.9)
     opt_state = opt.init(T.leaves(params))
-    acfg = AsyncConfig(tau_max=2, schedule="uniform", compressor="topk",
-                       topk_ratio=TOPK_RATIO)
-    state = init_async_state(acfg, 2, params, specs)
-    step = make_async_train_step(cfg, opt, acfg, 2, specs)
+    if sync is None:
+        acfg = AsyncConfig(tau_max=2, schedule="uniform", compressor="topk",
+                           topk_ratio=TOPK_RATIO)
+        state = init_async_state(acfg, 2, params, specs)
+        step = make_async_train_step(cfg, opt, acfg, 2, specs)
+    else:
+        scfg = SyncConfig(strategy=sync, topk_ratio=TOPK_RATIO)
+        state = init_dist_sync_state(scfg, 2, params)
+        step = make_elastic_train_step(cfg, opt, scfg, 2, specs)
     data = SyntheticLMDataset(cfg.vocab_size, 256, 4, seed=0)
     batches = [to_device(data.batch(t), dev) for t in range(2)]
     params, opt_state, state, _ = step(params, opt_state, state, batches[0])
@@ -461,7 +492,7 @@ def profile_step(torch) -> None:
             for e in prof.key_averages()
             if e.device_type == kernel_type and e.self_device_time_total > 0]
     busy_us = sum(r[1] for r in rows)
-    log(f"profile step: wall {wall * 1e3:.1f} ms (profiler on), device "
+    log(f"{title}: wall {wall * 1e3:.1f} ms (profiler on), device "
         f"kernels {busy_us / 1e3:.1f} ms ({busy_us / 1e3 / (wall * 1e3):.3f}"
         f" of wall), loss {float(m['loss']):.6f}")
     groups = {}
@@ -1627,6 +1658,263 @@ def profile_hybrid(torch) -> None:
     del params, cache
 
 
+# ---------------------------------------------------------------------------
+# phases 20-23: the synchronous gradient sync (--sync topk_ef|onebit_ef|
+# elastic)
+# ---------------------------------------------------------------------------
+
+SYNC_STEPS = {"topk_ef": 4, "onebit_ef": 2, "elastic": 2}
+
+
+def same_bits(torch, a, b) -> bool:
+    """Bitwise equal, with NaN (of any payload) at the same places."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(
+        torch.where(na, 0.0, a).view(torch.int32),
+        torch.where(nb, 0.0, b).view(torch.int32))
+
+
+def reduce_panel(torch, dev, gen, s, m, r, k, shared=False):
+    """S messages as the path makes them: each top-k payload is
+    ``topk_ef``'s picks of a fresh gradient (``shared``: the first
+    message's indices in every message, with fresh values), each one-bit
+    payload ``onebit_compress_rows`` of a fresh gradient."""
+    from repro_torch.kernels.cr_reduce.ops import onebit_compress_rows
+    from repro_torch.kernels.topk_ef.kernel import topk_ef
+    vals, idx, pos, means = [], [], [], []
+    for i in range(s):
+        g = torch.randn((m, r), generator=gen, device=dev)
+        v, j, _ = topk_ef(g, None, k, out_err=g)
+        vals.append(v if not shared or i == 0 else
+                    torch.randn(v.shape, generator=gen, device=dev))
+        idx.append(j if not shared or i == 0 else idx[0])
+        del g
+        g = torch.randn((m, r), generator=gen, device=dev)
+        p, mn, _ = onebit_compress_rows(g, None, out_err=g)
+        pos.append(p)
+        means.append(mn)
+        del g
+    return (torch.stack(vals), torch.stack(idx), torch.stack(pos),
+            torch.stack(means))
+
+
+def check_reduces(torch, dev, gen, records):
+    """Phase 20: K4 and K5 against their plain versions on the card."""
+    from repro_torch.kernels.cr_reduce.kernel import (onebit_cr_reduce,
+                                                      topk_cr_reduce)
+    from repro_torch.kernels.cr_reduce.ref import (onebit_cr_reduce_plain,
+                                                   topk_cr_reduce_plain)
+    worst = {topk_cr_reduce.name: 0.0, onebit_cr_reduce.name: 0.0}
+    # (S, M, R, k, weights, shared indices, inf under a zero weight)
+    cases = [(2, 1, R_WGATE, None, [1.0, 1.0], False, False),
+             (2, 1, R_WK, None, [1.0, 1.0], False, False),
+             (4, 1, R_WK, None, [1.0, 0.5, 0.25, 2.0], True, False),
+             (3, 24, 257, 1, [1.0, 0.0, 0.0], False, True)]
+    for s, m, r, k, weights, shared, poison in cases:
+        k = k or int(round(r * TOPK_RATIO))
+        vals, idx, pos, means = reduce_panel(torch, dev, gen, s, m, r, k,
+                                             shared)
+        if poison:
+            vals[2, 5, 0] = float("inf")
+            means[2, 5, 0] = float("inf")
+        w = torch.tensor(weights, dtype=torch.float32, device=dev)
+        for dtype in ("bfloat16", "float32"):
+            v = vals.to(getattr(torch, dtype))
+            args = (v, idx, w, r)
+            runs = (topk_cr_reduce(*args), topk_cr_reduce(*args),
+                    topk_cr_reduce_plain(*args))
+            tag = (f"(S, M, R) = ({s}, {m}, {r}) k={k} vals {dtype} w "
+                   f"{weights}{' shared indices' if shared else ''}"
+                   f"{' inf under w=0' if poison else ''}")
+            _check_reduce(torch, topk_cr_reduce.name, tag, runs, worst)
+        del v, runs
+        args = (pos, means, w)
+        runs = (onebit_cr_reduce(*args), onebit_cr_reduce(*args),
+                onebit_cr_reduce_plain(*args))
+        _check_reduce(torch, onebit_cr_reduce.name,
+                      f"(S, M, R) = ({s}, {m}, {r}) w {weights}"
+                      f"{' inf mean under w=0' if poison else ''}", runs,
+                      worst)
+        del vals, idx, pos, means, runs, args
+        torch.cuda.empty_cache()
+
+    # timing at the main path's panel: 2 workers' payloads of w_gate,
+    # values in bf16 as they cross the wire, unit weights
+    r = R_WGATE
+    k = int(round(r * TOPK_RATIO))
+    vals, idx, pos, means = reduce_panel(torch, dev, gen, 2, 1, r, k)
+    vals = vals.to(torch.bfloat16)
+    w = torch.ones((2,), dtype=torch.float32, device=dev)
+    ms = time_ms(torch, lambda: topk_cr_reduce(vals, idx, w, r), warmup=2,
+                 iters=5)
+    plain = time_ms(torch, lambda: topk_cr_reduce_plain(vals, idx, w, r))
+    flat = idx.long().reshape(-1)
+    prods = (vals.float() * w[:, None, None]).reshape(-1)
+    buf = torch.empty((r,), dtype=torch.float32, device=dev)
+    lib = time_ms(torch, lambda: buf.zero_().index_put_(
+        (flat,), prods, accumulate=True))
+    del flat, prods, buf
+    nbytes = 2 * k * (2 + 4) + 4 * 2 + 4 * r
+    records[topk_cr_reduce.name] = dict(
+        name=topk_cr_reduce.name, route="cuda", source=topk_cr_reduce.source,
+        replaces=topk_cr_reduce.replaces,
+        max_abs_err=worst[topk_cr_reduce.name], ms=ms, plain_ms=plain,
+        bound_ms=bound_ms(nbytes), bound_by="bytes", library_ms=lib,
+        shape=[2, 1, r], k=k, vals="bfloat16")
+    log(f"time topk_cr_reduce (2, 1, {r}) k={k} bf16 vals (topk_ef "
+        f"payloads): kernel {ms:.4f} ms, plain {plain:.4f} ms, zero_ + "
+        f"index_put_(accumulate=True) {lib:.4f} ms (flat indices and "
+        f"products precomputed), bound {bound_ms(nbytes):.4f} ms ({nbytes} "
+        f"bytes)")
+    ms = time_ms(torch, lambda: onebit_cr_reduce(pos, means, w), warmup=2,
+                 iters=5)
+    plain = time_ms(torch, lambda: onebit_cr_reduce_plain(pos, means, w))
+    nbytes = 2 * r + 2 * 8 + 4 * 2 + 4 * r
+    records[onebit_cr_reduce.name] = dict(
+        name=onebit_cr_reduce.name, route="triton",
+        source=onebit_cr_reduce.source, replaces=onebit_cr_reduce.replaces,
+        max_abs_err=worst[onebit_cr_reduce.name], ms=ms, plain_ms=plain,
+        bound_ms=bound_ms(nbytes), bound_by="bytes", library_ms=None,
+        shape=[2, 1, r])
+    log(f"time onebit_cr_reduce (2, 1, {r}) (one-bit payloads): kernel "
+        f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound_ms(nbytes):.4f} "
+        f"ms ({nbytes} bytes); no single PyTorch call reduces sign maps")
+    del vals, idx, pos, means
+    torch.cuda.empty_cache()
+
+
+def _check_reduce(torch, name, tag, runs, worst):
+    got, again, want = runs
+    torch.cuda.synchronize()
+    fin = torch.isfinite(want)
+    err = float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) \
+        else 0.0
+    worst[name] = max(worst[name], err)
+    same, repeat = same_bits(torch, got, want), same_bits(torch, got, again)
+    n_nan = int(torch.isnan(got).sum())
+    log(f"check {name} {tag}: bitwise vs plain {same}, run to run "
+        f"{repeat}, max_abs_err {err}, NaN entries {n_nan}")
+    require(same and repeat, f"{name} {tag} != plain version")
+
+
+def check_small_sync(torch, dev):
+    """Phase 21: qwen3-1.7b-smoke, 2 workers, 2 steps of each synchronous
+    strategy on the card against the same code on the CPU: the sync/update
+    half fed the same numpy gradients (params and per-worker state within
+    1e-6, gap2 within rtol 1e-5, as phase 3), then the whole step's losses
+    within 2e-2 (the port's bf16 forward/backward on two devices)."""
+    import numpy as np
+
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.core.scheduler import SyncConfig
+    from repro_torch.data.pipeline import SyntheticLMDataset, to_device
+    from repro_torch.dist.train import (init_dist_sync_state,
+                                        make_elastic_train_step)
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.params import init_params, param_specs
+    from repro_torch.optim import constant, momentum
+
+    cfg = get_config("qwen3-1.7b-smoke")
+    specs = param_specs(TF.model_defs(cfg))
+    base = init_params(TF.model_defs(cfg), torch.Generator().manual_seed(0),
+                       "cpu")
+    rng = np.random.default_rng(0)
+    data = SyntheticLMDataset(cfg.vocab_size, 64, 4, seed=0)
+    for sync in SYNC_STEPS:
+        # beta 0.5: the elastic norm gate defers some buckets of random
+        # gradients (at 0.9 it syncs all of them)
+        scfg = SyncConfig(strategy=sync, topk_ratio=TOPK_RATIO, beta=0.5)
+        grads = [[[rng.standard_normal(p.shape).astype(np.float32)
+                   for p in T.leaves(base)] for _ in range(2)]
+                 for _ in range(2)]
+        runs = {}
+        for d in ("cpu", dev):
+            fed, whole = [], []
+            for feed_grads in (True, False):
+                params = T.tree_map(lambda p: p.clone().to(d), base)
+                opt = momentum(constant(3e-3), 0.9)
+                opt_state = opt.init(T.leaves(params))
+                state = init_dist_sync_state(scfg, 2, params)
+                step = make_elastic_train_step(cfg, opt, scfg, 2, specs)
+                _, td = T.flatten(params)
+                for t in range(2):
+                    if feed_grads:
+                        feed = [(torch.zeros((), device=d), T.unflatten(
+                            td, [torch.from_numpy(x).to(d)
+                                 for x in grads[t][w]])) for w in range(2)]
+                        params, opt_state, state, m = step.sync_update(
+                            params, opt_state, state, feed)
+                    else:
+                        params, opt_state, state, m = step(
+                            params, opt_state, state,
+                            to_device(data.batch(t), d))
+                        whole.append(float(m["loss"]))
+                if feed_grads:
+                    per_worker = [v for k, v in sorted(state.items())
+                                  if k != "step"]
+                    fed = (T.leaves(params) + sum(
+                        (T.leaves(v) for v in per_worker), []),
+                           float(m["gap2_over_alpha2"]))
+            runs[str(d)] = (fed, whole)
+        ((cpu, gap_c), loss_c), ((card, gap_g), loss_g) = \
+            runs["cpu"], runs[str(dev)]
+        err = max(float((a.detach().cpu() - b.detach()).abs().max())
+                  for a, b in zip(card, cpu))
+        dloss = max(abs(a - b) for a, b in zip(loss_g, loss_c))
+        log(f"check sync {sync} smoke, 2 workers, card vs cpu: fed "
+            f"gradients params/state max_abs_err {err}, gap2_over_alpha2 "
+            f"{gap_g} vs {gap_c}; whole-step losses card {loss_g} cpu "
+            f"{loss_c} (max diff {dloss})")
+        require(err <= 1e-6 and math.isclose(gap_g, gap_c, rel_tol=1e-5),
+                f"{sync} sync half on the card disagrees with the CPU")
+        require(dloss < 2e-2, f"{sync} smoke losses differ card vs cpu")
+
+
+def run_sync_path(torch, kernels, sync: str):
+    """Phase 22: full-width qwen3-1.7b through the trainer's entry point
+    with ``--sync sync``, the launch counters zeroed just before; returns
+    the counts after it.  Every loss and gap finite, peak memory within
+    90% of the card."""
+    from repro_torch.launch import train
+
+    steps = SYNC_STEPS[sync]
+    argv = ["--arch", "qwen3-1.7b", "--sync", sync, "--topk-ratio",
+            str(TOPK_RATIO), "--workers", "2", "--batch", "4", "--seq",
+            "256", "--steps", str(steps), "--device", "cuda", "--seed", "0"]
+    log(f"sync path: python -m repro_torch.launch.train {' '.join(argv)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    history = train.main(argv)
+    wall = time.perf_counter() - t0
+    counts = {k.name: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"sync path {sync}: {steps} steps in {wall:.2f} s (model init "
+        f"included); step_s {[round(r['step_s'], 4) for r in history]}; "
+        f"peak memory {peak} bytes ({peak / total:.4f} of {total}); "
+        f"launches {json.dumps(counts)}")
+    require(len(history) == steps, "missing steps")
+    require(peak <= 0.9 * total, "peak memory above 90% of the card")
+    for row in history:
+        require(math.isfinite(row["loss"]) and
+                math.isfinite(row["gap2_over_alpha2"]),
+                f"non-finite step {row}")
+    want = {"topk_ef": {"topk_ef": 13 * 2 * steps,
+                        "topk_cr_reduce": 13 * steps},
+            "onebit_ef": {"onebit_cr_reduce": 13 * steps},
+            "elastic": {}}[sync]
+    for name, count in counts.items():
+        require(count == want.get(name, 0),
+                f"{sync}: {name} launched {count} times, not "
+                f"{want.get(name, 0)}")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1731,6 +2019,22 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     profile_hybrid(torch)
+
+    # the synchronous gradient sync: K4 and K5, the small card-vs-CPU
+    # check, then full-width qwen3-1.7b with every kernel's counter zeroed
+    # just before each strategy's run
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_reduces(torch, dev, gen, records)
+    check_small_sync(torch, dev)
+    for sync in SYNC_STEPS:
+        counts = run_sync_path(torch, all_kernels(), sync)
+        for name in ("topk_cr_reduce", "onebit_cr_reduce"):
+            if counts[name]:
+                records[name]["launches"] = counts[name]
+    gc.collect()
+    torch.cuda.empty_cache()
+    profile_step(torch, "profile sync step (topk_ef)", sync="topk_ef")
     log(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -53,8 +53,9 @@ from repro_torch.core import delivery as DLV
 from repro_torch.core.scheduler import (_from_rows, ef_compress_leaf,
                                         ef_compress_leaf_compact,
                                         leaf_rows_geometry)
-from repro_torch.dist.train import guarded_update, mean_grads, tree_all_finite
-from repro_torch.dist.workers import all_gather, pmean, shard_batch
+from repro_torch.dist.train import (guarded_update, tree_all_finite,
+                                    worker_grads)
+from repro_torch.dist.workers import all_gather, pmean
 from repro_torch.kernels.cr_reduce import ops as CR
 
 
@@ -151,9 +152,7 @@ class AsyncTrainStep:
 
     def worker_grads(self, params, batch: dict):
         """Gradient half: yield ``(loss, grads)`` per worker, in order."""
-        for shard in shard_batch(batch, self.n):
-            loss, _parts, grads = mean_grads(self.cfg, params, shard)
-            yield loss, grads
+        yield from worker_grads(self.cfg, params, batch, self.n)
 
     def __call__(self, params, opt_state, state: dict, batch: dict):
         return self.deliver(params, opt_state, state,

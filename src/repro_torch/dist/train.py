@@ -1,5 +1,15 @@
-"""Loss, gradients, the exact-sync train step and the dense-cache serving
-steps (counterpart of ``repro.dist.train``).
+"""Loss, gradients, the training steps and the dense-cache serving steps
+(counterpart of ``repro.dist.train``).
+
+Two training paths share one loss:
+
+* :func:`make_train_step` — the exact step on the whole batch, the
+  perfectly-consistent baseline;
+* :func:`make_elastic_train_step` — the relaxed-consistency path: ``p``
+  in-process workers each take the gradient of their batch shard, and
+  `repro_torch.core.scheduler.sync_gradients` decides what is applied
+  (the exact mean, top-k / one-bit with error feedback, or the elastic
+  norm- / static-gated partial sync).
 
 Parameters are a nested dict of float32 tensors in the reference's layout;
 gradients come back as a tree of the same structure.  Optimizer state and
@@ -13,6 +23,9 @@ import torch.nn.functional as F
 
 from repro_torch import tree as T
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.scheduler import (SyncConfig, init_sync_state,
+                                        sync_gradients)
+from repro_torch.dist.workers import pmean, shard_batch
 from repro_torch.models import transformer as TF
 from repro_torch.optim import apply_updates, global_norm
 from repro_torch.serve.sampling import SampleConfig, sample_tokens
@@ -56,6 +69,15 @@ def mean_grads(cfg: ArchConfig, params, batch: dict):
                          else torch.zeros_like(p))
             p.grad = None
     return loss.detach(), parts, T.unflatten(td, grads)
+
+
+def worker_grads(cfg: ArchConfig, params, batch: dict, n: int):
+    """Yield ``(loss, grads)`` of each of ``n`` workers' contiguous batch
+    shards at ``params``, in worker order.  The generator keeps no
+    reference to what it yielded, so a consumer that drops a worker's
+    gradients frees them before the next worker's backward."""
+    for shard in shard_batch(batch, n):
+        yield mean_grads(cfg, params, shard)[::2]
 
 
 def tree_all_finite(leaves) -> torch.Tensor:
@@ -103,6 +125,84 @@ def make_train_step(cfg: ArchConfig, opt):
         return params, opt_state, metrics
 
     return step
+
+
+def init_dist_sync_state(scfg: SyncConfig, n_workers: int,
+                         params_like) -> dict:
+    """State of :func:`make_elastic_train_step`: ``step`` and, for the
+    compressed and elastic strategies, one f32 accumulator per worker (EF
+    residual or deferred residual) with a leading worker dim, on the
+    params' device."""
+    return init_sync_state(scfg, params_like, n_workers)
+
+
+class _CollectLosses:
+    """Iterate the gradient trees of ``(loss, grads)`` pairs, keeping the
+    losses.  ``__next__`` holds no reference to what it returned."""
+
+    def __init__(self, pairs):
+        self._it = iter(pairs)
+        self.losses = []
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        loss, grads = next(self._it)
+        self.losses.append(loss)
+        return grads
+
+
+class ElasticTrainStep:
+    """Synchronous sync-strategy step ``(params, opt_state, sync_state,
+    batch) -> (params, opt_state, sync_state, metrics)`` over ``n_workers``
+    in-process workers.  Metrics: ``loss`` (mean over workers) and
+    ``gap2_over_alpha2``.
+
+    A step is two halves, as in `repro_torch.dist.async_engine`:
+    :meth:`worker_grads` yields each worker's ``(loss, grads)`` and
+    :meth:`sync_update` consumes them one worker at a time, syncs them and
+    applies the optimizer, so that a test can feed it gradients from
+    elsewhere.  Params, optimizer state and sync state are updated in
+    place.  ``static_phase`` is the elastic static gate's phase, fixed when
+    the step is built (as the reference compiles one program a phase)."""
+
+    def __init__(self, cfg: ArchConfig, opt, scfg: SyncConfig,
+                 n_workers: int, specs, static_phase: int = 0):
+        self.cfg, self.opt, self.scfg = cfg, opt, scfg
+        self.n, self.specs, self.static_phase = n_workers, specs, static_phase
+
+    def worker_grads(self, params, batch: dict):
+        """Gradient half: yield ``(loss, grads)`` per worker, in order."""
+        yield from worker_grads(self.cfg, params, batch, self.n)
+
+    def __call__(self, params, opt_state, state: dict, batch: dict):
+        return self.sync_update(params, opt_state, state,
+                                self.worker_grads(params, batch))
+
+    def sync_update(self, params, opt_state, state: dict, worker_grads):
+        """Sync/update half over an iterable of per-worker ``(loss,
+        grads)``."""
+        pairs = _CollectLosses(worker_grads)
+        synced, state, smetrics = sync_gradients(
+            self.scfg, pairs, state, specs=self.specs,
+            static_phase=self.static_phase)
+        if len(pairs.losses) != self.n:
+            raise ValueError(f"got gradients of {len(pairs.losses)} "
+                             f"workers, expected {self.n}")
+        _, opt_state, _ = guarded_update(self.opt, T.leaves(synced),
+                                         opt_state, T.leaves(params),
+                                         skip_nonfinite=False)
+        metrics = {"loss": pmean(pairs.losses),
+                   "gap2_over_alpha2": smetrics["gap2_over_alpha2"]}
+        return params, opt_state, state, metrics
+
+
+def make_elastic_train_step(cfg: ArchConfig, opt, scfg: SyncConfig,
+                            n_workers: int, specs, static_phase: int = 0):
+    """The relaxed-sync step over ``n_workers`` in-process workers
+    (gradient accumulation is not ported: one microbatch a worker)."""
+    return ElasticTrainStep(cfg, opt, scfg, n_workers, specs, static_phase)
 
 
 # ---------------------------------------------------------------------------

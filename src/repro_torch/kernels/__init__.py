@@ -1,9 +1,10 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch
-version: ``topk_ef`` (K1, CUDA C++), the ``cr_reduce`` deposits (K2 CUDA
-C++, K3 Triton), ``sim_step`` (K6 ``delivery_step`` and K7 ``sync_step``,
+version: ``topk_ef`` (K1, CUDA C++), the ``cr_reduce`` reduces (K4 CUDA
+C++, K5 Triton) and deposits (K2 CUDA C++, K3 Triton), ``sim_step`` (K6 ``delivery_step`` and K7 ``sync_step``,
 CUDA C++), ``onebit_ef`` (K8, Triton), ``swa_attention`` (K9
 ``swa_decode_attention``, CUDA C++) and ``ssd`` (K10 ``ssd_chunked``, CUDA
-C++).  :func:`main_path_kernels` lists the training path's wrappers,
+C++).  :func:`main_path_kernels` lists the bounded-staleness training path's
+wrappers, :func:`sync_kernels` the synchronous compressed sync's,
 :func:`sim_kernels` the simulator's, :func:`serve_kernels` the paged
 serving path's, :func:`hybrid_kernels` the Mamba2 serving path's and
 :func:`all_kernels` every one."""
@@ -15,6 +16,16 @@ def main_path_kernels():
                                                       topk_cr_deposit)
     from repro_torch.kernels.topk_ef.kernel import topk_ef
     return [topk_ef, topk_cr_deposit, onebit_cr_deposit]
+
+
+def sync_kernels():
+    """The kernel wrappers of the synchronous compressed gradient sync
+    (``--sync topk_ef|onebit_ef``), in launch order: K1 compresses each
+    worker's leaf, K4 or K5 reduces the gathered payloads."""
+    from repro_torch.kernels.cr_reduce.kernel import (onebit_cr_reduce,
+                                                      topk_cr_reduce)
+    from repro_torch.kernels.topk_ef.kernel import topk_ef
+    return [topk_ef, topk_cr_reduce, onebit_cr_reduce]
 
 
 def sim_kernels():
@@ -43,8 +54,8 @@ def hybrid_kernels():
 def all_kernels():
     """Every kernel wrapper of the port, each once."""
     out = []
-    for k in (main_path_kernels() + sim_kernels() + serve_kernels()
-              + hybrid_kernels()):
+    for k in (main_path_kernels() + sync_kernels() + sim_kernels()
+              + serve_kernels() + hybrid_kernels()):
         if k not in out:
             out.append(k)
     return out

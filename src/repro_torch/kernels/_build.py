@@ -27,6 +27,8 @@ SOURCES = {
     "topk_ef": KERNELS_DIR / "topk_ef" / "csrc" / "topk_ef.cu",
     "topk_cr_deposit": KERNELS_DIR / "cr_reduce" / "csrc" /
     "topk_cr_deposit.cu",
+    "topk_cr_reduce": KERNELS_DIR / "cr_reduce" / "csrc" /
+    "topk_cr_reduce.cu",
     "sim_step": KERNELS_DIR / "sim_step" / "csrc" / "sim_step.cu",
     "swa_decode": KERNELS_DIR / "swa_attention" / "csrc" / "swa_decode.cu",
     "ssd_chunked": KERNELS_DIR / "ssd" / "csrc" / "ssd_chunked.cu",

@@ -1,30 +1,44 @@
-"""Launchers of the deposit kernels (K2 and K3).
+"""Launchers of the reduce kernels (K4, K5) and the deposit kernels (K2,
+K3).
 
-* ``topk_cr_deposit`` — CUDA C++ (``csrc/topk_cr_deposit.cu``), bound with
-  ``ctypes``.
-* ``onebit_cr_deposit`` — Triton, defined below.
+* ``topk_cr_reduce`` (K4) — CUDA C++ (``csrc/topk_cr_reduce.cu``), bound
+  with ``ctypes``: zero fill, then one atomic scatter launch per message.
+* ``onebit_cr_reduce`` (K5) — Triton, defined below.
+* ``topk_cr_deposit`` (K2) — CUDA C++ (``csrc/topk_cr_deposit.cu``).
+* ``onebit_cr_deposit`` (K3) — Triton, defined below.
 
-Replaces ``src/repro/kernels/cr_reduce/kernel.py::onebit_cr_deposit``
-(Pallas TPU).  What bounds it: device-memory bytes — per message it reads
-the (M, R) sign map (1 byte per entry) and reads and writes the (M, R) f32
-slot it lands in; the select and multiply-add are free beside them.
-Design: each program owns one block of the M*R entries and loops over the
+``onebit_cr_reduce`` replaces ``src/repro/kernels/cr_reduce/kernel.py::
+onebit_cr_reduce`` (Pallas TPU).  What bounds it: device-memory bytes —
+per entry it reads S sign bytes, and per row and message two means, and
+writes one f32; the select and multiply-add are free beside them.
+Design: each program owns one block of the M*R entries, keeps the sum in
+registers from a zero start, loops over the S messages in order (``acc =
+acc + select(pos, m_pos, m_neg) * w``) and stores once, so no two programs
+touch the same word and the rounding is the plain version's.  Launched
+with ``enable_fp_fusion=False``, so that no FMA changes the bits.  Each
+program writes only its own words, once, so it needs none of K3's
+per-message barriers.
+
+``onebit_cr_deposit`` replaces ``…/kernel.py::onebit_cr_deposit``.  What
+bounds it: device-memory bytes — per message it reads the (M, R) sign map
+(1 byte per entry) and reads and writes the (M, R) f32 slot it lands in.
+Design: as K5, but the sum lives in the ring: each program loops over the
 S messages in order (``acc += select(pos, m_pos, m_neg) * w``), so no two
 programs touch the same word and no atomics are needed; the order of the
-messages, which decides the rounding when two share a slot, is the
-plain version's.  Launched with ``enable_fp_fusion=False``: Triton would
-otherwise contract ``q * w + acc`` into one FMA and change the bits; and
-with ``num_stages=1``, so that no load of a later message is hoisted above
-the store of an earlier one to the same slot; and with a block barrier
-after each message, because the warp that stores an entry need not be the
-one that loads it for the next message (without it, a message sharing its
+messages, which decides the rounding when two share a slot, is the plain
+version's.  Launched with ``enable_fp_fusion=False``, and with
+``num_stages=1``, so that no load of a later message is hoisted above the
+store of an earlier one to the same slot; and with a block barrier after
+each message, because the warp that stores an entry need not be the one
+that loads it for the next message (without it, a message sharing its
 slot with an earlier one read stale entries now and then on the card, at
 large sizes only).
 
-Both wrappers check device, dtype, shape and contiguity, update ``acc`` in
-place (the reference donates it), launch on the current stream and count
-their launches in ``.launches``.  ``triton`` is imported inside the
-launching function, so this module imports on machines without it.
+Every wrapper checks device, dtype, shape and contiguity, launches on the
+current stream and counts its calls in ``.launches``; the reduces allocate
+their output, the deposits update ``acc`` in place (the reference donates
+it).  ``triton`` is imported inside the launching function, so this module
+imports on machines without it.
 """
 from __future__ import annotations
 
@@ -92,10 +106,83 @@ class TopkCrDeposit:
         return acc
 
 
+class TopkCrReduce:
+    """``topk_cr_reduce(vals, idx, weights, r) -> (M, R) f32``: vals (S, M,
+    k) bf16 or f32, idx (S, M, k) int32, weights (S,) f32, all on one card.
+    Indices must lie in [0, r); a top-k message's are unique within a row,
+    which makes the result bitwise the plain version's.  With duplicates
+    inside one message the sum is still right, but the order of its adds,
+    and so its rounding, is not fixed.  With S = 0 or k = 0 the output is
+    the zero fill alone."""
+
+    name = "topk_cr_reduce"
+    source = "src/repro_torch/kernels/cr_reduce/csrc/topk_cr_reduce.cu"
+    replaces = "src/repro/kernels/cr_reduce/kernel.py:50"
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, vals, idx, weights, r: int):
+        name = self.name
+        _need(vals.is_cuda, name, "vals must be a CUDA tensor")
+        _need(vals.dtype in (torch.float32, torch.bfloat16) and vals.ndim == 3
+              and vals.is_contiguous(), name,
+              f"vals must be contiguous (S, M, k) float32 or bfloat16, got "
+              f"{vals.dtype} {tuple(vals.shape)}")
+        s, m, k = vals.shape
+        _need(idx.device == vals.device and idx.dtype == torch.int32
+              and tuple(idx.shape) == (s, m, k) and idx.is_contiguous(),
+              name, f"idx must be contiguous ({s}, {m}, {k}) int32")
+        _need(weights.device == vals.device
+              and weights.dtype == torch.float32
+              and tuple(weights.shape) == (s,), name,
+              f"weights must be ({s},) float32 on {vals.device}")
+        _need(0 <= r < 2 ** 31 and (k <= r or s == 0), name,
+              f"r={r} must be in [0, 2^31) and at least k={k}")
+        out = torch.empty((m, r), dtype=torch.float32, device=vals.device)
+        lib = _build.load("topk_cr_reduce")
+        if not getattr(lib, "_typed", False):
+            lib.topk_cr_reduce_launch.argtypes = [_VP, _VP, ctypes.c_int,
+                                                  _VP, _VP] + [_LL] * 4 \
+                + [_VP]
+            lib.topk_cr_reduce_launch.restype = ctypes.c_int
+            lib._typed = True
+        with torch.cuda.device(vals.device):
+            stream = torch.cuda.current_stream(vals.device).cuda_stream
+            rc = lib.topk_cr_reduce_launch(
+                out.data_ptr(), vals.data_ptr(),
+                int(vals.dtype == torch.bfloat16), idx.data_ptr(),
+                weights.data_ptr(), s, m, r, k, stream)
+        _build.check(rc, name)
+        self.launches += 1
+        return out
+
+
 # triton.language, bound at the first launch (the kernel body below names
 # it as a module global, as Triton resolves names in the function's globals)
 tl = None
 _ONEBIT_KERNEL = None
+_ONEBIT_REDUCE_KERNEL = None
+
+
+def _onebit_reduce_body(out_ptr, pos_ptr, means_ptr, w_ptr, S, M, R, MR,
+                        BLOCK: tl.constexpr):
+    pid = tl.program_id(0)
+    offs = pid.to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
+    live = offs < MR
+    mean_off = (offs // R) * 2
+    pos_row = pos_ptr
+    means_row = means_ptr
+    acc = tl.zeros([BLOCK], dtype=tl.float32)
+    for s in range(0, S):
+        wt = tl.load(w_ptr + s)
+        p = tl.load(pos_row + offs, mask=live, other=0)
+        m_pos = tl.load(means_row + mean_off, mask=live, other=0.0)
+        m_neg = tl.load(means_row + mean_off + 1, mask=live, other=0.0)
+        acc = acc + tl.where(p != 0, m_pos, m_neg) * wt
+        pos_row += MR
+        means_row += M * 2
+    tl.store(out_ptr + offs, acc, mask=live)
 
 
 def _onebit_deposit_body(acc_ptr, pos_ptr, means_ptr, slots_ptr, w_ptr, S, M,
@@ -125,16 +212,18 @@ def _onebit_deposit_body(acc_ptr, pos_ptr, means_ptr, slots_ptr, w_ptr, S, M,
         means_row += M * 2
 
 
-def _onebit_kernel():
-    """Import Triton and JIT-wrap the kernel body (once)."""
-    global tl, _ONEBIT_KERNEL
+def _triton_kernels():
+    """Import Triton and JIT-wrap the kernel bodies (once); -> (deposit,
+    reduce)."""
+    global tl, _ONEBIT_KERNEL, _ONEBIT_REDUCE_KERNEL
     if _ONEBIT_KERNEL is None:
         import triton
         import triton.language
 
         tl = triton.language
         _ONEBIT_KERNEL = triton.jit(_onebit_deposit_body)
-    return _ONEBIT_KERNEL
+        _ONEBIT_REDUCE_KERNEL = triton.jit(_onebit_reduce_body)
+    return _ONEBIT_KERNEL, _ONEBIT_REDUCE_KERNEL
 
 
 class OnebitCrDeposit:
@@ -159,7 +248,7 @@ class OnebitCrDeposit:
         _need(means.device == acc.device and means.dtype == torch.float32
               and tuple(means.shape) == (s, m, 2) and means.is_contiguous(),
               self.name, f"means must be contiguous ({s}, {m}, 2) float32")
-        kernel = _onebit_kernel()
+        kernel = _triton_kernels()[0]
         mr = m * r
         grid = ((mr + self.block - 1) // self.block,)
         with torch.cuda.device(acc.device):
@@ -170,5 +259,46 @@ class OnebitCrDeposit:
         return acc
 
 
+class OnebitCrReduce:
+    """``onebit_cr_reduce(pos, means, weights) -> (M, R) f32``: pos (S, M,
+    R) bool, means (S, M, 2) f32, weights (S,) f32, all on one card."""
+
+    name = "onebit_cr_reduce"
+    source = "src/repro_torch/kernels/cr_reduce/kernel.py"
+    replaces = "src/repro/kernels/cr_reduce/kernel.py:177"
+    block = 1024
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, pos, means, weights):
+        name = self.name
+        _need(pos.is_cuda, name, "pos must be a CUDA tensor")
+        _need(pos.dtype == torch.bool and pos.ndim == 3
+              and pos.is_contiguous(), name,
+              f"pos must be contiguous (S, M, R) bool, got {pos.dtype} "
+              f"{tuple(pos.shape)}")
+        s, m, r = pos.shape
+        _need(means.device == pos.device and means.dtype == torch.float32
+              and tuple(means.shape) == (s, m, 2) and means.is_contiguous(),
+              name, f"means must be contiguous ({s}, {m}, 2) float32")
+        _need(weights.device == pos.device and weights.dtype == torch.float32
+              and tuple(weights.shape) == (s,), name,
+              f"weights must be ({s},) float32 on {pos.device}")
+        out = torch.empty((m, r), dtype=torch.float32, device=pos.device)
+        mr = m * r
+        if mr:
+            kernel = _triton_kernels()[1]
+            grid = ((mr + self.block - 1) // self.block,)
+            with torch.cuda.device(pos.device):
+                kernel[grid](out, pos.view(torch.uint8), means, weights, s, m,
+                             r, mr, BLOCK=self.block, num_warps=4,
+                             enable_fp_fusion=False)
+        self.launches += 1
+        return out
+
+
+topk_cr_reduce = TopkCrReduce()
+onebit_cr_reduce = OnebitCrReduce()
 topk_cr_deposit = TopkCrDeposit()
 onebit_cr_deposit = OnebitCrDeposit()

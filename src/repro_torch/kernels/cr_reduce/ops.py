@@ -1,5 +1,5 @@
-"""Dispatch for the deposit ops and the row-space compress (counterpart of
-``repro.kernels.cr_reduce.ops``).
+"""Dispatch for the reduce and deposit ops and the row-space compress
+(counterpart of ``repro.kernels.cr_reduce.ops``).
 
 A CPU tensor takes the plain version; a CUDA tensor takes the kernel, which
 raises on what it does not take — there is no ``auto`` that falls back and
@@ -11,9 +11,29 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.cr_reduce.kernel import (onebit_cr_deposit,
-                                                  topk_cr_deposit)
+                                                  onebit_cr_reduce,
+                                                  topk_cr_deposit,
+                                                  topk_cr_reduce)
 from repro_torch.kernels.cr_reduce.ref import (onebit_cr_deposit_plain,
-                                               topk_cr_deposit_plain)
+                                               onebit_cr_reduce_plain,
+                                               topk_cr_deposit_plain,
+                                               topk_cr_reduce_plain)
+
+
+def topk_reduce(vals, idx, weights, r: int):
+    """Weighted scatter-sum of S top-k messages: vals (S, M, k) f32 or
+    bf16, idx (S, M, k) int32, weights (S,) f32 -> (M, R) f32."""
+    if vals.is_cuda:
+        return topk_cr_reduce(vals, idx, weights, r)
+    return topk_cr_reduce_plain(vals, idx, weights, r)
+
+
+def onebit_reduce(pos, means, weights):
+    """Weighted sum of S sign/mean messages: pos (S, M, R) bool, means
+    (S, M, 2) f32, weights (S,) f32 -> (M, R) f32."""
+    if pos.is_cuda:
+        return onebit_cr_reduce(pos, means, weights)
+    return onebit_cr_reduce_plain(pos, means, weights)
 
 
 def topk_deposit(acc, vals, idx, slots, weights):

@@ -1,9 +1,16 @@
-"""End-to-end trainer of the port (counterpart of the ``--sync
-exact|async`` subset of ``repro.launch.train``).
+"""End-to-end trainer of the port (counterpart of ``repro.launch.train``,
+without its checkpointing, fault injection and tensor parallelism).
 
     python -m repro_torch.launch.train --arch qwen3-1.7b --sync async \\
         --compressor topk --topk-ratio 0.0625 --tau-max 2 --workers 2 \\
         --batch 4 --seq 256 --steps 4
+    python -m repro_torch.launch.train --arch qwen3-1.7b --sync topk_ef \\
+        --topk-ratio 0.0625 --workers 2 --batch 4 --seq 256 --steps 4
+
+``--sync exact`` is the exact step on the whole batch; ``topk_ef``,
+``onebit_ef`` and ``elastic`` (norm gate, ``--beta``, ``--budget-b``) are
+the synchronous strategies of `repro_torch.core.scheduler`; ``async`` is
+the bounded-staleness engine.
 
 ``--workers N`` runs N data-parallel workers in this process (each takes a
 contiguous batch shard).  ``--device`` defaults to ``cuda``; without a card
@@ -23,7 +30,11 @@ def _parse(argv=None):
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--lr", type=float, default=3e-3)
-    ap.add_argument("--sync", default="exact", choices=["exact", "async"])
+    ap.add_argument("--sync", default="exact",
+                    choices=["exact", "topk_ef", "onebit_ef", "elastic",
+                             "async"])
+    ap.add_argument("--beta", type=float, default=0.9)
+    ap.add_argument("--budget-b", type=float, default=0.0)
     ap.add_argument("--topk-ratio", type=float, default=1 / 16)
     ap.add_argument("--tau-max", type=int, default=4)
     ap.add_argument("--async-schedule", default="uniform",
@@ -58,18 +69,22 @@ def resolve_device(name: str):
 
 def main(argv=None) -> list[dict]:
     """Run the configured training; returns one metrics dict per step
-    (``loss``, ``stale_gap2``, ``mean_tau``, ``step_s``)."""
+    (``loss``, ``gap2_over_alpha2``, ``stale_gap2``, ``mean_tau``,
+    ``step_s``; a metric the strategy does not have is 0)."""
     args = _parse(argv)
     import numpy as np
     import torch
 
     from repro_torch import tree as T
     from repro_torch.configs import get_config
+    from repro_torch.core.scheduler import SyncConfig
     from repro_torch.data.pipeline import SyntheticLMDataset, to_device
     from repro_torch.dist.async_engine import (AsyncConfig,
                                                init_async_state,
                                                make_async_train_step)
-    from repro_torch.dist.train import make_train_step
+    from repro_torch.dist.train import (init_dist_sync_state,
+                                        make_elastic_train_step,
+                                        make_train_step)
     from repro_torch.models import transformer as TF
     from repro_torch.models.params import init_params, param_specs
     from repro_torch.optim import constant, momentum
@@ -98,6 +113,12 @@ def main(argv=None) -> list[dict]:
             params, opt_state, m = exact(params, opt_state, batch)
             return params, opt_state, state, m
         state = None
+    elif args.sync != "async":
+        scfg = SyncConfig(strategy=args.sync, topk_ratio=args.topk_ratio,
+                          beta=args.beta, budget_b=args.budget_b,
+                          gate="norm")
+        state = init_dist_sync_state(scfg, args.workers, params)
+        run = make_elastic_train_step(cfg, opt, scfg, args.workers, specs)
     else:
         horizon = max(args.steps, 1) \
             if args.async_schedule in ("crash", "rejoin") \
@@ -120,12 +141,18 @@ def main(argv=None) -> list[dict]:
             torch.cuda.synchronize(device)
         row = {"step": t, "step_s": time.perf_counter() - t0,
                "loss": float(metrics["loss"]),
+               "gap2_over_alpha2": float(metrics.get("gap2_over_alpha2",
+                                                     0.0)),
                "stale_gap2": float(metrics.get("stale_gap2", 0.0)),
                "mean_tau": float(metrics.get("mean_tau", 0.0))}
         history.append(row)
-        print(f"step {t:5d}  loss {row['loss']:.6f}  stale_gap2 "
-              f"{row['stale_gap2']:.6g}  mean_tau {row['mean_tau']:.2f}"
-              f"  step_s {row['step_s']:.4f}", flush=True)
+        # gap2/a2 as the reference prints it: the elastic gap, or the
+        # bounded-staleness engine's stale gap
+        gap = row["stale_gap2"] if args.sync == "async" \
+            else row["gap2_over_alpha2"]
+        tau = f"  tau {row['mean_tau']:.2f}" if args.sync == "async" else ""
+        print(f"step {t:5d}  loss {row['loss']:.6f}  gap2/a2 {gap:.4g}"
+              f"{tau}  step_s {row['step_s']:.4f}", flush=True)
     if history:
         print(f"final loss {np.mean([r['loss'] for r in history[-10:]]):.4f}",
               flush=True)

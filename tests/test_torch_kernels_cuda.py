@@ -122,6 +122,109 @@ def test_kernels_count_launches(cuda):
 
 
 # ---------------------------------------------------------------------------
+# the synchronous sync's reduces: topk_cr_reduce (K4), onebit_cr_reduce (K5)
+# ---------------------------------------------------------------------------
+
+def _bits_equal(a, b):
+    """Bitwise equal, with NaN (of any payload) at the same places."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(
+        torch.where(na, 0.0, a).view(torch.int32),
+        torch.where(nb, 0.0, b).view(torch.int32))
+
+
+def _reduce_inputs(cuda, s, m, r, k, shared=False, seed=0):
+    """S messages: top-k payloads with unique indices per row (shared: the
+    same indices in every message), sign maps, means and weights."""
+    rng = np.random.default_rng(seed)
+    vals = rng.standard_normal((s, m, k)).astype(np.float32)
+    rows = lambda: np.stack([rng.permutation(r)[:k] for _ in range(m)])
+    idx = np.stack([rows()] * s if shared else [rows() for _ in range(s)])
+    pos = rng.random((s, m, r)) < 0.5
+    means = rng.standard_normal((s, m, 2)).astype(np.float32)
+    weights = rng.uniform(0.0, 1.5, (s,)).astype(np.float32)
+    return [torch.from_numpy(x).to(cuda) for x in
+            (vals, idx.astype(np.int32), pos, means, weights)]
+
+
+@pytest.mark.parametrize("s,m,r,k,shared", [
+    (2, 1, 4096, 256, False), (3, 16, 100, 7, False), (5, 24, 257, 1, False),
+    (2, 8, 64, 64, False), (4, 1, 1 << 20, 1 << 16, True),
+    (2, 1, 1 << 24, 1 << 20, False)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reduce_kernels_match_plain_bitwise(cuda, s, m, r, k, shared, dtype):
+    from repro_torch.kernels.cr_reduce.kernel import (onebit_cr_reduce,
+                                                      topk_cr_reduce)
+    from repro_torch.kernels.cr_reduce.ref import (onebit_cr_reduce_plain,
+                                                   topk_cr_reduce_plain)
+    vals, idx, pos, means, w = _reduce_inputs(cuda, s, m, r, k, shared)
+    vals = vals.to(getattr(torch, dtype))
+    got = topk_cr_reduce(vals, idx, w, r)
+    again = topk_cr_reduce(vals, idx, w, r)
+    want = topk_cr_reduce_plain(vals, idx, w, r)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and tuple(got.shape) == (m, r)
+    assert _bits_equal(got, want) and _bits_equal(got, again)
+    got = onebit_cr_reduce(pos, means, w)
+    again = onebit_cr_reduce(pos, means, w)
+    want = onebit_cr_reduce_plain(pos, means, w)
+    torch.cuda.synchronize()
+    assert _bits_equal(got, want) and _bits_equal(got, again)
+
+
+def test_reduce_kernels_zero_weight_inf_and_empty(cuda):
+    from repro_torch.kernels.cr_reduce.kernel import (onebit_cr_reduce,
+                                                      topk_cr_reduce)
+    from repro_torch.kernels.cr_reduce.ref import (onebit_cr_reduce_plain,
+                                                   topk_cr_reduce_plain)
+    vals, idx, pos, means, w = _reduce_inputs(cuda, 3, 24, 257, 1, seed=1)
+    w[1] = 0.0
+    vals[2, 5, 0] = float("inf")
+    means[2, 5, 0] = float("inf")
+    w[2] = 0.0
+    got = topk_cr_reduce(vals, idx, w, 257)
+    assert _bits_equal(got, topk_cr_reduce_plain(vals, idx, w, 257))
+    assert int(torch.isnan(got).sum()) == 1
+    got = onebit_cr_reduce(pos, means, w)
+    assert _bits_equal(got, onebit_cr_reduce_plain(pos, means, w))
+    assert int(torch.isnan(got).sum()) == int(pos[2, 5].sum())
+    for s, k in ((0, 4), (2, 0)):                   # the zero fill alone
+        out = topk_cr_reduce(torch.zeros((s, 3, k), device=cuda),
+                             torch.zeros((s, 3, k), dtype=torch.int32,
+                                         device=cuda),
+                             torch.ones((s,), device=cuda), 50)
+        assert tuple(out.shape) == (3, 50) and not out.any()
+    out = onebit_cr_reduce(torch.zeros((0, 3, 50), dtype=torch.bool,
+                                       device=cuda),
+                           torch.zeros((0, 3, 2), device=cuda),
+                           torch.ones((0,), device=cuda))
+    assert tuple(out.shape) == (3, 50) and not out.any()
+
+
+def test_reduce_kernels_check_and_count(cuda):
+    from repro_torch.kernels import sync_kernels
+    from repro_torch.kernels.cr_reduce import ops as CR
+    from repro_torch.kernels.cr_reduce.kernel import (onebit_cr_reduce,
+                                                      topk_cr_reduce)
+    vals, idx, pos, means, w = _reduce_inputs(cuda, 2, 4, 64, 8)
+    for bad in ((vals.half(), idx, w, 64), (vals, idx.long(), w, 64),
+                (vals, idx, w.double(), 64), (vals.cpu(), idx, w, 64),
+                (vals.transpose(1, 2), idx, w, 64), (vals, idx, w, 4)):
+        with pytest.raises(ValueError):
+            topk_cr_reduce(*bad)
+    for bad in ((pos.float(), means, w), (pos, means.double(), w),
+                (pos, means[:, :, :1].contiguous(), w), (pos, means, w[:1])):
+        with pytest.raises(ValueError):
+            onebit_cr_reduce(*bad)
+    before = [k.launches for k in sync_kernels()]
+    out = CR.topk_reduce(vals, idx, w, 64)            # CUDA: the kernels
+    out2 = CR.onebit_reduce(pos, means, w)
+    after = [k.launches for k in sync_kernels()]
+    assert out.is_cuda and out2.is_cuda
+    assert [b - a for a, b in zip(before, after)] == [0, 1, 1]
+
+
+# ---------------------------------------------------------------------------
 # the simulator's kernels: delivery_step (K6), sync_step (K7), onebit_ef (K8)
 # ---------------------------------------------------------------------------
 
