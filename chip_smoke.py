@@ -25,26 +25,33 @@ Phases (any failure exits non-zero):
    (32, 4096), d = 100 and B = 16 cases at (16, 256) with A shared and
    stacked; ``onebit_ef`` at the matching (rows, d); ``topk_ef`` at the
    simulator's (8, 32), k = 8, with ties; each run twice (bitwise) and
-   timed beside its bound;
+   timed beside its bound, ``sync_step`` at B = 1 in turns with
+   ``torch.addmm``;
 8. Table 1 (``bench_table1_bounds.py``'s nine relaxations and shared
    memory, P = 8, d = 32, T = 600) on the card and on the CPU with the same
    draws: card == CPU at the parity tolerances, no VIOLATION;
 9. the fused step at ``bench_sim_step_kernel.py``'s sizes (p = 16, d in
-   {256, 512}, T = 400, sync and crash_subst) against the unfused one, one
-   fused run at (32, 4096), and the 16-case crash_subst grid through
-   ``simulate_grid`` (one ``delivery_step`` launch per step);
+   {256, 512}, T = 400, sync and crash_subst; the median of three fused
+   runs) against the unfused one, one
+   fused run at (32, 4096), the 16-case crash_subst grid through
+   ``simulate_grid`` (one ``delivery_step`` launch per step) and a 3-seed
+   sync sweep through ``simulate_sweep`` (one ``sync_step`` launch per
+   step), a case of each bitwise equal to its single run;
 10. Figure 3 (``bench_fig3_variance_bounded.py``: MLP, sync and
     variance-bounded, P = 8, T = 800, seeds 4-7): the accuracy recovers;
     the launch counters are zeroed before phase 8 and read after phase 10;
-11. one fused and one unfused simulator run under ``torch.profiler``;
+11. one fused and one unfused crash_subst simulator run and one fused sync
+    run under ``torch.profiler``;
 12. ``swa_decode_attention`` (K9) against its plain version: the serving
     path's shape (4 slots, 8 kv heads of 128, 4 query heads each, T =
     4112 keys = 257 pages of 16, window 4096) and T = 128, 512, 1000 and
-    8192, bf16 and f32, with rows whose window slid, rows with most keys
-    beyond the query and a row with no live key; each case twice
-    (bitwise), each element within one bf16 rounding step of the plain
-    version, and timed beside the bound of the bytes its live keys need
-    and ``scaled_dot_product_attention`` with the same mask;
+    8192, with rows whose window slid, rows with most keys beyond the
+    query and a row with no live key; the profiled decode step's rows (4
+    rows of about 503 live keys of 4112); G = 1, 8, 16; D = 64, 256; a
+    window of 12 keys; bf16 and f32; each case twice (bitwise), each
+    element within one bf16 rounding step of the plain version, and timed
+    beside the bound of the bytes its live keys need and, in turns,
+    ``scaled_dot_product_attention`` with the same mask;
 13. the paged serving steps on small inputs, card against CPU
     (``mixtral-8x7b-smoke`` and a qwen3 smoke with a window of 96, page
     32), teacher-forced, on the logits;
@@ -105,6 +112,11 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory (data sheet)
 FP32_FLOPS_PER_S = 67e12            # H100 SXM FP32 outside the tensor cores
 TOPK_RATIO = 1 / 16
+# K7's and K9's times before their redesign, one device_ms reading each,
+# recorded by this script on an H100 80GB HBM3 at 700.00 W (PERF.md's
+# kernel table): logged as recorded, never measured here nor put in the
+# kernels' JSON line
+EARLIER_MS = {"swa_decode_attention": 0.1454, "sync_step": 0.0581}
 # leaf row lengths of full-width qwen3-1.7b on the main path (M = 1)
 R_WK = 28 * 2048 * 8 * 128          # layers/attn/wk: 58,720,256
 R_WGATE = 28 * 2048 * 6144          # layers/mlp/w_gate: 352,321,536
@@ -171,6 +183,22 @@ def device_ms(torch, fn, iters: int = 20):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters, host * 1e3
+
+
+def paired_ms(torch, kernel, library, rounds: int = 5):
+    """-> (kernel ms, library ms, note): ``device_ms`` of each in turns
+    (kernel, library, kernel, library, ...), so that both see the card in
+    the same states; the least of each, and a note of every reading and of
+    the pairs in which the kernel was the faster."""
+    ks, ls = [], []
+    for _ in range(rounds):
+        ks.append(device_ms(torch, kernel)[0])
+        ls.append(device_ms(torch, library)[0])
+    wins = sum(k < lib for k, lib in zip(ks, ls))
+    note = (f"paired readings kernel [{', '.join(f'{x:.4f}' for x in ks)}] "
+            f"library [{', '.join(f'{x:.4f}' for x in ls)}] ms, kernel "
+            f"faster in {wins} of {rounds} pairs")
+    return min(ks), min(ls), note
 
 
 def bound_ms(n_bytes: float) -> float:
@@ -627,17 +655,21 @@ def check_sim_step(torch, dev, gen, records):
         bnd, by = bound_of(nbytes, 2.0 * b * d * d)
         ms, call = device_ms(torch, lambda: sync_step(*sargs))
         plain, pcall = device_ms(torch, lambda: sync_step_plain(*sargs))
-        lib = None
+        lib, verdict = None, ""
         if b == 1 and groups is None:
             cf = float(c[0])
             base, diff = x - nsum, x - xs
-            lib, _ = device_ms(torch, lambda: torch.addmm(base, diff, a,
+            single = ms
+            ms, lib, note = paired_ms(torch, lambda: sync_step(*sargs),
+                                      lambda: torch.addmm(base, diff, a,
                                                           alpha=-cf))
+            verdict = (f"; below torch.addmm {ms < lib} (least of each; "
+                       f"{note}; one reading alone {single:.4f} ms)")
         log(f"time sync_step {tag}: kernel {ms:.4f} ms on the device "
             f"({call:.4f} ms a call from the host), plain {plain:.4f} ms "
             f"({pcall:.4f}), torch.addmm "
             f"{'none (batched)' if lib is None else f'{lib:.4f} ms'}, bound "
-            f"{bnd:.4f} ms ({by}; {nbytes} bytes)")
+            f"{bnd:.4f} ms ({by}; {nbytes} bytes){verdict}")
         if timed:
             records[sync_step.name] = dict(
                 name=sync_step.name, route="cuda", source=sync_step.source,
@@ -830,11 +862,14 @@ def fused_at_repo_sizes(torch, counts):
     d in {256, 512}, T = 400 for sync and crash_subst; one fused run at
     (32, 4096); then the 16-case grid (4 problems x 2 alphas x 2 seeds,
     crash_subst f=3, p = 16, d = 256) in one simulate_grid call, one
-    delivery_step launch per step for all 16 cases."""
+    delivery_step launch per step for all 16 cases; then a 3-seed sync
+    sweep, one sync_step launch per step, a case bitwise equal to its
+    single run."""
     import numpy as np
 
     from repro_torch.core.problems import Quadratic
-    from repro_torch.core.sim import (Relaxation, simulate, simulate_grid)
+    from repro_torch.core.sim import (Relaxation, simulate, simulate_grid,
+                                      simulate_sweep)
 
     t_len = 400
     relaxes = (("sync", Relaxation("sync"), "sync_step"),
@@ -848,25 +883,29 @@ def fused_at_repo_sizes(torch, counts):
         prob = Quadratic(dim=d, cond=8.0, sigma=1.0, seed=0, device="cuda")
         x0 = np.ones(d, np.float32)
         for name, relax, kernel in relaxes:
-            before = counts()
-            t0 = time.perf_counter()
-            fused = simulate(prob, relax, p, 0.02, t_len, seed=3, x0=x0,
-                             fused=True)
-            t_f = time.perf_counter() - t0
-            used = {k: v - before[k] for k, v in counts().items()}
+            walls = []
+            for _ in range(3):       # the median of three fused runs
+                before = counts()
+                t0 = time.perf_counter()
+                fused = simulate(prob, relax, p, 0.02, t_len, seed=3, x0=x0,
+                                 fused=True)
+                walls.append(time.perf_counter() - t0)
+                used = {k: v - before[k] for k, v in counts().items()}
+                require(used[kernel] == t_len, f"{kernel} launched "
+                        f"{used[kernel]} times, not {t_len}")
+            t_f = sorted(walls)[1]
             t0 = time.perf_counter()
             unfused = simulate(prob, relax, p, 0.02, t_len, seed=3, x0=x0,
                                fused=False)
             t_u = time.perf_counter() - t0
             agree = parity(fused, unfused)
             log(f"sim_step/{name}_p{p}_d{d}: fused {t_len / t_f:.1f} "
-                f"steps/s ({t_f:.3f} s), unfused {t_len / t_u:.1f} steps/s "
-                f"({t_u:.3f} s), speedup {t_u / t_f:.2f}x; fused == unfused "
-                f"at parity tolerance {agree}; launches in the fused run "
-                f"{json.dumps(used)}")
+                f"steps/s ({t_f:.3f} s, the median of "
+                f"[{', '.join(f'{t_len / w:.1f}' for w in walls)}]), unfused "
+                f"{t_len / t_u:.1f} steps/s ({t_u:.3f} s), speedup "
+                f"{t_u / t_f:.2f}x; fused == unfused at parity tolerance "
+                f"{agree}; launches in each fused run {json.dumps(used)}")
             require(agree, f"{name} p{p} d{d}: fused != unfused")
-            require(used[kernel] == t_len, f"{kernel} launched "
-                    f"{used[kernel]} times, not {t_len}")
     t0 = time.perf_counter()
     big = Quadratic(dim=4096, cond=8.0, sigma=1.0, seed=0, device="cuda")
     build = time.perf_counter() - t0
@@ -905,6 +944,25 @@ def fused_at_repo_sizes(torch, counts):
     require(len(grid) == 16 and used == t_len and same,
             "the fused grid is not one launch per step or differs from its "
             "single runs")
+
+    # sync: a batched sweep of three seeds, one sync_step launch a step for
+    # all three, each case bitwise equal to its own single run
+    sync = Relaxation("sync")
+    before = counts()
+    sweep = simulate_sweep(probs[0], sync, 16, 0.02, t_len, [0, 1, 2], x0=x0,
+                           fused=True)
+    used = counts()["sync_step"] - before["sync_step"]
+    one = simulate(probs[0], sync, 16, 0.02, t_len, seed=2, x0=x0,
+                   fused=True)
+    same = np.array_equal(one.x_final.view(np.int32),
+                          sweep[2].x_final.view(np.int32)) and \
+        np.array_equal(one.losses, sweep[2].losses)
+    log(f"sim_step/sweep_sync_p16_d256_x3: sync_step launches {used} for "
+        f"the sweep of 3 seeds x {t_len} steps; seed 2 bitwise equal to its "
+        f"single run {same}")
+    require(used == t_len and same,
+            "the fused sync sweep is not one launch per step or differs "
+            "from its single runs")
 
 
 def figure3(torch):
@@ -950,8 +1008,9 @@ def figure3(torch):
 
 def profile_sim(torch) -> None:
     """Where a simulator run's time goes: crash_subst at p = 16, d = 256,
-    T = 100, fused and unfused, under torch.profiler: device time by
-    kernel, kernel launches per step and the device-busy share."""
+    T = 100, fused and unfused, and sync fused, under torch.profiler:
+    device time by kernel, kernel launches per step and the device-busy
+    share."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -959,10 +1018,12 @@ def profile_sim(torch) -> None:
     from repro_torch.core.sim import Relaxation, simulate
 
     prob = Quadratic(dim=256, cond=8.0, sigma=1.0, seed=0, device="cuda")
-    relax = Relaxation("crash_subst", f=3)
     x0 = np.ones(256, np.float32)
     t_len = 100
-    for fused in (True, False):
+    for kind, fused in (("crash_subst", True), ("crash_subst", False),
+                        ("sync", True)):
+        relax = (Relaxation("crash_subst", f=3) if kind == "crash_subst"
+                 else Relaxation("sync"))
         simulate(prob, relax, 16, 0.02, t_len, seed=3, x0=x0, fused=fused)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -979,7 +1040,7 @@ def profile_sim(torch) -> None:
                 and e.self_device_time_total > 0]
         busy_us = sum(r[1] for r in rows)
         n_kernels = sum(r[2] for r in rows)
-        log(f"profile sim crash_subst p16 d256 T{t_len} fused={fused}: wall "
+        log(f"profile sim {kind} p16 d256 T{t_len} fused={fused}: wall "
             f"{wall * 1e3:.2f} ms (profiler on), device kernels "
             f"{busy_us / 1e3:.3f} ms ({busy_us / 1e3 / (wall * 1e3):.4f} of "
             f"wall), {n_kernels} kernels ({n_kernels / t_len:.2f} per step)")
@@ -1009,7 +1070,7 @@ SERVE_GEN = 32
 # them; an H100 80GB HBM3 read 0.022 (mixtral smoke) and 0.020 (qwen3)
 LOGIT_TOL = 0.05
 SERVE_GROUPS = (
-    ("K9 swa_decode_attention", ("swa_split_kernel", "swa_merge_kernel")),
+    ("K9 swa_decode_attention", ("swa_decode_kernel",)),
     ("matmul", ("nvjet", "gemm", "gemv", "xmma", "cutlass", "cublas",
                 "sm90_", "sm80_")),
     ("gather / copy", ("index", "gather", "copy", "Memcpy", "Memset",
@@ -1055,32 +1116,58 @@ def swa_bytes_flops(torch, q, k, pos, base, window):
     return nbytes, flops, live
 
 
+# K9's cases beyond the serving path's shape at T in SWA_T: (label, (B, KV,
+# G, D, T), window, rows); rows "swa_rows" (a slid window, most keys beyond
+# pos, no live key) or "decode" (phase 15's step: 4 rows of about 503 live
+# keys from base 0)
+SWA_T = (4112, 128, 512, 1000, 8192)
+SWA_CASES = (
+    ("decode step", (4, 8, 4, 128, 4112), SWA_WINDOW, "decode"),
+    ("G 1", (4, 8, 1, 128, 4112), SWA_WINDOW, "swa_rows"),
+    ("G 8", (4, 8, 8, 128, 4112), SWA_WINDOW, "swa_rows"),
+    ("G 16", (4, 2, 16, 128, 4112), SWA_WINDOW, "swa_rows"),
+    ("D 64", (4, 8, 4, 64, 4112), SWA_WINDOW, "swa_rows"),
+    ("D 256", (4, 4, 4, 256, 4112), SWA_WINDOW, "swa_rows"),
+    ("window 12", (4, 8, 4, 128, 1000), 12, "swa_rows"),
+)
+
+
 def check_swa_decode(torch, dev, gen, records):
     import torch.nn.functional as F
 
     from repro_torch.kernels.swa_attention.kernel import swa_decode_attention
     from repro_torch.kernels.swa_attention.ref import swa_decode_plain
     b, kv, g, d, t_path = SWA_PATH
+    cases = [(f"T {t}", (b, kv, g, d, t), SWA_WINDOW, "swa_rows")
+             for t in SWA_T] + list(SWA_CASES)
     worst = 0.0
-    for t in (t_path, 128, 512, 1000, 8192):
+    for label, shape, window, rows in cases:
         for dtype in ("bfloat16", "float32"):
             dt = getattr(torch, dtype)
+            b, kv, g, d, t = shape
             q, k, v, pos, base = swa_rows(torch, dev, gen, b, kv, g, d, t, dt)
+            if rows == "decode":
+                pos = torch.tensor([502, 503, 501, 500], dtype=torch.int32,
+                                   device=dev)
+                base = torch.zeros(4, dtype=torch.int32, device=dev)
             args = (q, k, v, pos, base)
-            got = swa_decode_attention(*args, window=SWA_WINDOW)
-            again = swa_decode_attention(*args, window=SWA_WINDOW)
-            want = swa_decode_plain(*args, window=SWA_WINDOW)
+            got = swa_decode_attention(*args, window=window)
+            again = swa_decode_attention(*args, window=window)
+            want = swa_decode_plain(*args, window=window)
             torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max())
             over = swa_over_limit(got, want, dtype)
-            mean = v[3].float().mean(0)[:, None].expand(kv, g, d)
-            err_dead = float((got[3].float() - mean).abs().max())
-            over_dead = swa_over_limit(got[3], mean, dtype)
+            err_dead, over_dead = 0.0, 0.0
+            if rows == "swa_rows":       # row 3: the mean of its values
+                mean = v[3].float().mean(0)[:, None].expand(kv, g, d)
+                err_dead = float((got[3].float() - mean).abs().max())
+                over_dead = swa_over_limit(got[3], mean, dtype)
             same = torch.equal(got, again)
             finite = bool(torch.isfinite(got).all())
             if dtype == "bfloat16":
                 worst = max(worst, err)
-            tag = f"(B, KV, G, D, T) = ({b}, {kv}, {g}, {d}, {t}) {dtype}"
+            tag = (f"{label}: (B, KV, G, D, T) = ({b}, {kv}, {g}, {d}, {t}) "
+                   f"window {window} {dtype}")
             atol, rtol = SWA_TOL[dtype]
             log(f"check swa_decode_attention {tag}: max_abs_err {err}, "
                 f"largest error over its limit {over} (limit {atol} + "
@@ -1092,26 +1179,30 @@ def check_swa_decode(torch, dev, gen, records):
                     f"swa_decode_attention {tag} != plain version")
             key_pos = base[:, None] + torch.arange(t, device=dev)[None]
             mask = (key_pos <= pos[:, None]) & (pos[:, None] - key_pos
-                                                < SWA_WINDOW)
+                                                < window)
             qs = q.reshape(b, kv * g, 1, d)
             ks = k.transpose(1, 2).contiguous()
             vs = v.transpose(1, 2).contiguous()
             sdpa_mask = mask[:, None, None, :]
-            ms, call = device_ms(torch, lambda: swa_decode_attention(
-                *args, window=SWA_WINDOW))
+            run = lambda: swa_decode_attention(*args, window=window)
+            single, call = device_ms(torch, run)
+            sdpa = lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=sdpa_mask, enable_gqa=True)
+            ms, lib, note = paired_ms(torch, run, sdpa)
             plain, _ = device_ms(torch, lambda: swa_decode_plain(
-                *args, window=SWA_WINDOW))
-            lib, _ = device_ms(torch, lambda: F.scaled_dot_product_attention(
-                qs, ks, vs, attn_mask=sdpa_mask, enable_gqa=True))
+                *args, window=window))
             nbytes, flops, live = swa_bytes_flops(torch, q, k, pos, base,
-                                                  SWA_WINDOW)
+                                                  window)
             bnd, by = bound_of(nbytes, flops)
             log(f"time swa_decode_attention {tag}: kernel {ms:.4f} ms on the "
                 f"device ({call:.4f} ms a call from the host), plain "
-                f"{plain:.4f} ms, scaled_dot_product_attention (bool mask, "
-                f"enable_gqa) {lib:.4f} ms, bound {bnd:.4f} ms ({by}; "
-                f"{nbytes} bytes for live keys {live} of {t})")
-            if t == t_path and dtype == "bfloat16":
+                f"{plain:.4f} ms, "
+                f"scaled_dot_product_attention (bool mask, enable_gqa) "
+                f"{lib:.4f} ms, below it {ms < lib} (least of each; {note}; "
+                f"one reading alone {single:.4f} ms); bound {bnd:.4f} ms "
+                f"({ms / bnd:.2f}x; {by}; {nbytes} bytes for live keys "
+                f"{live} of {t})")
+            if label == f"T {t_path}" and dtype == "bfloat16":
                 records[swa_decode_attention.name] = dict(
                     name=swa_decode_attention.name, route="cuda",
                     source=swa_decode_attention.source,
@@ -2039,8 +2130,13 @@ def main() -> int:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: records[kern.name][k] for k in keys}
-                                  for kern in all_kernels()]}), flush=True)
+    log("recorded, not measured in this run: the times before the "
+        "redesign (one device_ms reading each, H100 80GB HBM3 at 700.00 W, "
+        "PERF.md) " + ", ".join(f"{name} {ms} ms"
+                                for name, ms in EARLIER_MS.items()))
+    line = [{k: records[kern.name][k] for k in keys}
+            for kern in all_kernels()]
+    print(json.dumps({"kernels": line}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,6 +6,7 @@ Libraries are built at first use from the sources in the checkout, into
 ``kernels/_build/`` (ignored by git), and named by a hash of the source and
 the flags, so an edited source is never served a stale library.
 :func:`build_all` starts one ``nvcc`` per source at once and waits for all.
+:class:`Tickets` keeps the zeroed counters the fused reductions share.
 """
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR / "_build"
@@ -96,6 +99,24 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             _LIBS[name] = lib
         return lib
+
+
+class Tickets:
+    """Zeroed integer ticket counters, per device, kept across launches: the
+    last block of a group finds itself by one, and each launch leaves the
+    counters it used zeroed.  So the launches of one wrapper on one device
+    must be ordered: one stream at a time."""
+
+    def __init__(self):
+        self._tickets: dict = {}
+
+    def __call__(self, device, n: int):
+        """At least ``n`` zeroed int32 counters on ``device``."""
+        t = self._tickets.get(device)
+        if t is None or t.numel() < n:
+            t = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+            self._tickets[device] = t
+        return t
 
 
 def check(rc: int, what: str) -> None:

@@ -26,10 +26,11 @@
 // (16 us at p = 32).  The product stays FP32 FFMA, not TF32: the
 // reference multiplies in f32.
 //
-// Design: one block per (column tile of 32, case).  delivery_step walks d
-// in chunks of 32: each chunk of (V - x*) and of A's column panel is staged
-// in shared memory (the next chunk's loads are in flight in registers while
-// the current one is multiplied), and each thread keeps RM rows of the
+// delivery_step's design: one block per (column tile of 32, case).  It
+// walks d in chunks of 32: each chunk of (V - x*) and of A's column panel
+// is staged in shared memory (the next chunk's loads are in flight in
+// registers while the current one is multiplied), and each thread keeps RM
+// rows of the
 // p x 32 G tile in registers, accumulating over d in one fixed order.  The
 // G tile then goes to shared memory and each thread forms rows of P = U G
 // for its column, in a fixed order over p, and writes x', V', defer'.  The
@@ -39,6 +40,19 @@
 // a fixed order everywhere, so the result is the same bit for bit from run
 // to run and whatever B is.  Any d is taken (the tail tile and chunk are
 // masked), and p up to 64.
+//
+// sync_step's design: at d = 4096 one column tile per block gave 128
+// blocks on 132 SMs with 4 loads of A in flight a warp, so the kernel
+// waited on memory latency at 2.9x its byte bound.  A's rows are now split
+// across blocks too: block (column tile of 128, row slice, case) reads its
+// slice of A with one 16-byte load per lane and row that bypasses L1, 8
+// rows in flight a warp (32 KB a block; the first 8 rows before x - x* is
+// staged), and at (B 1, d 4096) the grid is 32 x 16 = 512 blocks, about 4
+// per SM.  Each block sums its slice in one fixed order; the last block of
+// each (case, column tile), found by an integer ticket, adds the slices in
+// slice order and applies the epilogue, so the call stays one launch.  The
+// slice length depends on d alone, so a case's sum is the same bit for bit
+// whatever B, the groups or the card.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -195,37 +209,133 @@ __global__ void __launch_bounds__(THREADS) delivery_kernel(
   if (threadIdx.x == 0) ticket[b] = 0u;   // ready for the next launch
 }
 
-constexpr int SYNC_KG = 16;               // warps splitting d
-constexpr int SYNC_THREADS = TN * SYNC_KG;  // 512
+// sync_step (the design is in the header): the slice length depends on d
+// alone (kernel.py's sync_slice_rows chooses it), so a case's summation
+// order never depends on B, the groups or the card.
+constexpr int SYNC_WARPS = 8;
+constexpr int SYNC_THREADS = 32 * SYNC_WARPS;  // 256
+constexpr int SYNC_TN = 4 * 32;                // columns per block
+constexpr int SYNC_RS_MAX = 512;               // rows per slice, at most
+constexpr int SYNC_PRE = 8;                    // rows loaded before x - x*
 
+// 4 floats of a row of A from column c0 (VEC: one 16-byte load that
+// bypasses L1; else up to 4 loads, 0 past d).
+template <bool VEC>
+__device__ __forceinline__ float4 a_row4(const float* p, int c0, int d) {
+  float4 v;
+  if (VEC) {
+    asm volatile(
+        "ld.global.nc.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+        : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+        : "l"(p));
+  } else {
+    v.x = __ldg(p);
+    v.y = c0 + 1 < d ? __ldg(p + 1) : 0.f;
+    v.z = c0 + 2 < d ? __ldg(p + 2) : 0.f;
+    v.w = c0 + 3 < d ? __ldg(p + 3) : 0.f;
+  }
+  return v;
+}
+
+template <bool VEC>   // VEC: 16-byte aligned rows of A (d % 4 == 0)
 __global__ void __launch_bounds__(SYNC_THREADS) sync_kernel(
     const float* __restrict__ x, const float* __restrict__ a,
     const float* __restrict__ xstar, const float* __restrict__ nsum,
-    const float* __restrict__ cw, float* __restrict__ x_out, int d,
-    int a_group) {
-  __shared__ float red[SYNC_KG][TN + 1];
-  const int tx = threadIdx.x & 31;
-  const int kg = threadIdx.x >> 5;
-  const int64_t b = blockIdx.y;
-  const int c = blockIdx.x * TN + tx;
+    const float* __restrict__ cw, float* __restrict__ x_out,
+    float* __restrict__ partial, unsigned int* __restrict__ ticket, int d,
+    int rs, int a_group) {
+  __shared__ float diff[SYNC_RS_MAX];
+  __shared__ float red[SYNC_WARPS][SYNC_TN];
+  __shared__ unsigned int is_last;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int tile = blockIdx.x;
+  const int sl = blockIdx.y;
+  const int nsl = gridDim.y;
+  const int64_t b = blockIdx.z;
   const int64_t grp = b / a_group;
   const float* xb = x + b * d;
   const float* ab = a + grp * (int64_t)d * d;
   const float* xsb = xstar + grp * d;
-  float s = 0.f;
-  if (c < d) {
-#pragma unroll 4
-    for (int k = kg; k < d; k += SYNC_KG)
-      s = fmaf(__fsub_rn(xb[k], xsb[k]), __ldg(ab + (int64_t)k * d + c), s);
-  }
-  red[kg][tx] = s;
-  __syncthreads();
-  if (kg != 0 || c >= d) return;
-  float dot = red[0][tx];
+  const int k0 = sl * rs;
+  const int n = min(rs, d - k0);
+  const int c0 = tile * SYNC_TN + 4 * lane;   // this lane's 4 columns
+  const bool cols = c0 < d;
+  const float* ak = ab + (int64_t)k0 * d + c0;
+
+  float4 pre[SYNC_PRE];       // rows warp + SYNC_WARPS * e
 #pragma unroll
-  for (int g = 1; g < SYNC_KG; ++g) dot = __fadd_rn(dot, red[g][tx]);
-  x_out[b * d + c] =
-      __fsub_rn(__fsub_rn(xb[c], __fmul_rn(cw[b], dot)), nsum[b * d + c]);
+  for (int e = 0; e < SYNC_PRE; ++e) {
+    const int k = warp + SYNC_WARPS * e;
+    pre[e] = cols && k < n ? a_row4<VEC>(ak + (int64_t)k * d, c0, d)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  for (int i = threadIdx.x; i < n; i += SYNC_THREADS)
+    diff[i] = __fsub_rn(xb[k0 + i], xsb[k0 + i]);
+  __syncthreads();
+
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+  if (cols) {
+#pragma unroll
+    for (int e = 0; e < SYNC_PRE; ++e) {
+      const int k = warp + SYNC_WARPS * e;
+      if (k < n) {
+        const float dk = diff[k];
+        s0 = fmaf(dk, pre[e].x, s0);
+        s1 = fmaf(dk, pre[e].y, s1);
+        s2 = fmaf(dk, pre[e].z, s2);
+        s3 = fmaf(dk, pre[e].w, s3);
+      }
+    }
+#pragma unroll 8
+    for (int k = warp + SYNC_WARPS * SYNC_PRE; k < n; k += SYNC_WARPS) {
+      const float dk = diff[k];
+      const float4 v = a_row4<VEC>(ak + (int64_t)k * d, c0, d);
+      s0 = fmaf(dk, v.x, s0);
+      s1 = fmaf(dk, v.y, s1);
+      s2 = fmaf(dk, v.z, s2);
+      s3 = fmaf(dk, v.w, s3);
+    }
+  }
+  red[warp][4 * lane] = s0;
+  red[warp][4 * lane + 1] = s1;
+  red[warp][4 * lane + 2] = s2;
+  red[warp][4 * lane + 3] = s3;
+  __syncthreads();
+
+  const int j = threadIdx.x;                 // column of the tile
+  const int c = tile * SYNC_TN + j;
+  const bool mine = j < SYNC_TN && c < d;
+  auto apply = [&](float dot) {
+    x_out[b * d + c] = __fsub_rn(__fsub_rn(xb[c], __fmul_rn(cw[b], dot)),
+                                 nsum[b * d + c]);
+  };
+  float dot = 0.f;
+  if (mine) {
+    dot = red[0][j];
+#pragma unroll
+    for (int w = 1; w < SYNC_WARPS; ++w) dot = __fadd_rn(dot, red[w][j]);
+  }
+  if (nsl == 1) {                            // one slice: no partials
+    if (mine) apply(dot);
+    return;
+  }
+  if (mine) partial[(b * nsl + sl) * d + c] = dot;
+  __threadfence();
+  __syncthreads();
+  unsigned int* tk = ticket + b * gridDim.x + tile;
+  if (threadIdx.x == 0)
+    is_last = atomicAdd(tk, 1u) == (unsigned int)(nsl - 1);
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  if (mine) {
+    const float* pc = partial + b * nsl * d + c;
+    float t = __ldcg(pc);
+    for (int s = 1; s < nsl; ++s) t = __fadd_rn(t, __ldcg(pc + (int64_t)s * d));
+    apply(t);
+  }
+  if (threadIdx.x == 0) *tk = 0u;            // ready for the next launch
 }
 
 template <int RM>
@@ -288,16 +398,29 @@ int sim_delivery_launch(const float* v, const float* x, const float* a,
   return (int)e;
 }
 
+// rs rows of A a slice (1 <= rs <= 512).  With more than one slice,
+// ``partial`` holds B * ceil(d / rs) * d floats of per-slice column sums
+// and ``ticket`` B * ceil(d / 128) unsigned ints, zeroed; every launch
+// leaves them zeroed again.
 int sim_sync_launch(const float* x, const float* a, const float* xstar,
                     const float* nsum, const float* c, float* x_out,
-                    long long B, long long d, long long a_group,
+                    float* partial, unsigned int* ticket, long long B,
+                    long long d, long long rs, long long a_group,
                     void* stream_ptr) {
-  if (B <= 0 || d <= 0 || B > 65535 || a_group <= 0)
+  if (B <= 0 || d <= 0 || B > 65535 || a_group <= 0 || rs <= 0 ||
+      rs > SYNC_RS_MAX || (d + rs - 1) / rs > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const dim3 grid((unsigned)((d + TN - 1) / TN), (unsigned)B);
-  sync_kernel<<<grid, SYNC_THREADS, 0, stream>>>(x, a, xstar, nsum, c, x_out,
-                                                 (int)d, (int)a_group);
+  const dim3 grid((unsigned)((d + SYNC_TN - 1) / SYNC_TN),
+                  (unsigned)((d + rs - 1) / rs), (unsigned)B);
+  if (d % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0)
+    sync_kernel<true><<<grid, SYNC_THREADS, 0, stream>>>(
+        x, a, xstar, nsum, c, x_out, partial, ticket, (int)d, (int)rs,
+        (int)a_group);
+  else
+    sync_kernel<false><<<grid, SYNC_THREADS, 0, stream>>>(
+        x, a, xstar, nsum, c, x_out, partial, ticket, (int)d, (int)rs,
+        (int)a_group);
   return (int)cudaGetLastError();
 }
 

@@ -8,14 +8,16 @@ of cases share one problem, as ``simulate_grid`` orders them).
 
 The wrappers check device, dtype, shape and contiguity, allocate the
 outputs with ``torch.empty``, launch on the current stream, raise on a
-non-zero launch error and count their launches in ``.launches``.
-``delivery_step`` keeps one zeroed ticket counter per case and device
-across launches (each launch leaves it zeroed), so its launches on one
+non-zero launch error and count their launches in ``.launches``.  Each
+keeps zeroed ticket counters per device across launches (each launch
+leaves them zeroed): one per case for ``delivery_step``, one per (case,
+column tile) for ``sync_step``.  So the launches of one wrapper on one
 device must be ordered: one stream at a time.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -23,6 +25,22 @@ from repro_torch.kernels import _build
 
 _VP, _LL = ctypes.c_void_p, ctypes.c_longlong
 MAX_WORKERS = 64
+SYNC_TN = 128             # sync_step: columns of A a block
+SYNC_RS_MAX, SYNC_RS_MIN = 512, 64   # rows of A a block, at most and least
+SYNC_BLOCKS = 384         # blocks of one case to reach: 3 an SM or more
+
+
+@functools.lru_cache(maxsize=None)
+def sync_slice_rows(d: int) -> int:
+    """Rows of A each ``sync_step`` block sums: halved from 512 (down to
+    64) until one case has ``SYNC_BLOCKS`` blocks.  It depends on d alone,
+    so a case's summation order never depends on B, the groups or the
+    card."""
+    tiles = -(-d // SYNC_TN)
+    rs = SYNC_RS_MAX
+    while rs > SYNC_RS_MIN and tiles * -(-d // rs) < SYNC_BLOCKS:
+        rs //= 2
+    return rs
 
 
 def _lib():
@@ -32,7 +50,7 @@ def _lib():
         lib.sim_delivery_partial_floats.restype = _LL
         lib.sim_delivery_launch.argtypes = [_VP] * 13 + [_LL] * 4 + [_VP]
         lib.sim_delivery_launch.restype = ctypes.c_int
-        lib.sim_sync_launch.argtypes = [_VP] * 6 + [_LL] * 3 + [_VP]
+        lib.sim_sync_launch.argtypes = [_VP] * 8 + [_LL] * 4 + [_VP]
         lib.sim_sync_launch.restype = ctypes.c_int
         lib._typed = True
     return lib
@@ -75,16 +93,7 @@ class DeliveryStep:
 
     def __init__(self):
         self.launches = 0
-        self._tickets: dict = {}
-
-    def _ticket(self, device, b):
-        """A zeroed counter per case, kept across launches (each launch
-        leaves it zeroed)."""
-        t = self._tickets.get(device)
-        if t is None or t.numel() < b:
-            t = torch.zeros(max(b, 64), dtype=torch.int32, device=device)
-            self._tickets[device] = t
-        return t
+        self._ticket = _build.Tickets()
 
     def __call__(self, v, x, a, x_star, noise, u, defer=None):
         name = self.name
@@ -137,6 +146,7 @@ class SyncStep:
 
     def __init__(self):
         self.launches = 0
+        self._ticket = _build.Tickets()
 
     def __call__(self, x, a, x_star, nsum, c):
         name = self.name
@@ -149,14 +159,23 @@ class SyncStep:
                                ("c", c, (b,))):
             _check(name, t, shape, what, dev)
         group = _problem_group(name, a, x_star, b, d, dev)
+        rs = sync_slice_rows(d)
+        slices = -(-d // rs)
         lib = _lib()
         with torch.cuda.device(dev):
             x_out = torch.empty_like(x)
+            partial = ticket = None       # one slice: no partials
+            if slices > 1:
+                partial = torch.empty(b * slices * d, dtype=torch.float32,
+                                      device=dev)
+                ticket = self._ticket(dev, b * -(-d // SYNC_TN))
             stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = lib.sim_sync_launch(x.data_ptr(), a.data_ptr(),
-                                     x_star.data_ptr(), nsum.data_ptr(),
-                                     c.data_ptr(), x_out.data_ptr(), b, d,
-                                     group, stream)
+            rc = lib.sim_sync_launch(
+                x.data_ptr(), a.data_ptr(), x_star.data_ptr(),
+                nsum.data_ptr(), c.data_ptr(), x_out.data_ptr(),
+                None if partial is None else partial.data_ptr(),
+                None if ticket is None else ticket.data_ptr(), b, d, rs,
+                group, stream)
         _build.check(rc, name)
         self.launches += 1
         return x_out

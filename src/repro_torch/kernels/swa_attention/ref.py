@@ -5,12 +5,32 @@ from __future__ import annotations
 import torch
 
 NEG_INF = -1e30
+SPLIT_ROUND = 16
 
 
 def rows_int32(x, b: int, device) -> torch.Tensor:
     """A scalar or (B,) position as a contiguous (B,) int32 tensor."""
     return torch.as_tensor(x, device=device).to(torch.int32).expand(
         b).contiguous()
+
+
+def live_span(pos: int, base: int, t: int, window: int = 0):
+    """-> (lo, hi): the live keys of a row are ``t`` in [lo, hi), with
+    0 <= lo <= hi <= t and lo == hi when none is live.  Key ``base + t`` is
+    live iff it is <= pos and, for window != 0, pos - key < window: the
+    mask of :func:`swa_decode_plain`, in O(1).  The CUDA kernel
+    (``csrc/swa_decode.cu``) computes the same interval."""
+    rel = pos - base
+    hi = min(max(rel + 1, 0), t)
+    lo = min(max(rel - window + 1, 0), hi) if window else 0
+    return lo, hi
+
+
+def split_len(n: int, nsplit: int) -> int:
+    """Keys of one of ``nsplit`` splits of a row's ``n`` keys, as the CUDA
+    kernel cuts them: ceil(n / nsplit) rounded up to a multiple of 16."""
+    per = -(-n // nsplit)
+    return -(-per // SPLIT_ROUND) * SPLIT_ROUND
 
 
 def swa_decode_plain(q, k_cache, v_cache, pos, base=None, *,

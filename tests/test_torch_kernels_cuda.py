@@ -285,6 +285,31 @@ def test_sync_step_kernel_matches_plain(cuda, b, p, d, groups):
     assert torch.equal(got.view(torch.int32), again.view(torch.int32))
 
 
+@pytest.mark.parametrize("d", [32, 1000, 4096])
+def test_sync_step_kernel_batch_is_bitwise_its_single_cases(cuda, d):
+    """Each case of a B = 3 launch (A shared, and one A per case) is bit
+    for bit its own B = 1 launch: a case's summation order depends on d
+    alone; and within the plain version's tolerance."""
+    from repro_torch.kernels.sim_step.kernel import sync_step
+    from repro_torch.kernels.sim_step.ref import sync_step_plain
+    for groups in (None, 3):
+        v, x, a, xs, noise, _, _ = _sim_inputs(cuda, 3, 4, d, False, groups,
+                                               seed=d)
+        nsum = noise.sum(1)
+        c = 0.02 + 0.01 * torch.arange(3, device=cuda, dtype=torch.float32)
+        got = sync_step(x, a, xs, nsum, c)
+        want = sync_step_plain(x, a, xs, nsum, c)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+        for i in range(3):
+            ai, xsi = (a, xs) if groups is None else (
+                a[i].contiguous(), xs[i].contiguous())
+            one = sync_step(x[i:i + 1].contiguous(), ai, xsi,
+                            nsum[i:i + 1].contiguous(), c[i:i + 1].contiguous())
+            assert torch.equal(one[0].view(torch.int32),
+                               got[i].view(torch.int32))
+
+
 def test_sim_step_kernels_raise_on_what_they_do_not_take(cuda):
     from repro_torch.kernels.sim_step.kernel import delivery_step, sync_step
     v, x, a, xs, noise, u, _ = _sim_inputs(cuda, 1, 8, 32, False)
@@ -428,6 +453,79 @@ def test_swa_decode_kernel_matches_plain(cuda, t, dtype):
     assert torch.equal(got, again)
     # the row with no live key: the mean of its values
     assert within(got[3], v[3].float().mean(0)[:, None].expand(8, 4, 128))
+
+
+def _swa_within(got, want, dtype):
+    atol, rtol = (1e-5, 2.0 ** -7) if dtype == "bfloat16" else (3e-6, 0.0)
+    return bool(((got.float() - want.float()).abs()
+                 <= atol + rtol * want.float().abs()).all())
+
+
+@pytest.mark.parametrize("shape,window", [
+    ((4, 8, 1, 128, 4112), 4096), ((4, 8, 8, 128, 4112), 4096),
+    ((4, 2, 16, 128, 1000), 4096), ((4, 8, 4, 64, 4112), 4096),
+    ((4, 4, 4, 256, 2000), 4096), ((4, 8, 4, 128, 1000), 12),
+    ((4, 2, 3, 50, 300), 64), ((4, 2, 5, 72, 300), 0)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_swa_decode_kernel_heads_widths_and_windows(cuda, shape, window,
+                                                    dtype):
+    """G in {1, 8, 16}, D in {64, 256}, a window shorter than one split
+    (12 keys), and D = 50 (rows not a multiple of 16 bytes: element loads)
+    and 72 (nine 16-byte chunks a bf16 row), on the rows of ``_swa_inputs``:
+    within the limits of
+    ``test_swa_decode_kernel_matches_plain``, the row with no live key the
+    mean of its values, bitwise from run to run."""
+    from repro_torch.kernels.swa_attention.kernel import swa_decode_attention
+    from repro_torch.kernels.swa_attention.ref import swa_decode_plain
+    b, kv, g, d, t = shape
+    dt = getattr(torch, dtype)
+    q, k, v, pos, base = _swa_inputs(cuda, b, kv, g, d, t, dt, seed=g + d)
+    got = swa_decode_attention(q, k, v, pos, base, window=window)
+    again = swa_decode_attention(q, k, v, pos, base, window=window)
+    want = swa_decode_plain(q, k, v, pos, base, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and torch.isfinite(got).all()
+    assert _swa_within(got, want, dtype)
+    assert torch.equal(got, again)
+    assert _swa_within(got[3], v[3].float().mean(0)[:, None].expand(kv, g, d),
+                       dtype)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_swa_decode_kernel_serving_step_rows(cuda, dtype):
+    """The rows of the profiled serving decode step: 4 rows of about 503
+    live keys of T = 4112 (257 pages of 16), base 0, window 4096."""
+    from repro_torch.kernels.swa_attention.kernel import swa_decode_attention
+    from repro_torch.kernels.swa_attention.ref import swa_decode_plain
+    dt = getattr(torch, dtype)
+    q, k, v, _, _ = _swa_inputs(cuda, 4, 8, 4, 128, 4112, dt, seed=503)
+    pos = torch.tensor([502, 503, 501, 500], dtype=torch.int32, device=cuda)
+    base = torch.zeros(4, dtype=torch.int32, device=cuda)
+    got = swa_decode_attention(q, k, v, pos, base, window=4096)
+    again = swa_decode_attention(q, k, v, pos, base, window=4096)
+    want = swa_decode_plain(q, k, v, pos, base, window=4096)
+    torch.cuda.synchronize()
+    assert _swa_within(got, want, dtype)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_swa_decode_kernel_many_splits(cuda, dtype):
+    """More splits than the merge stages at once (a long row without a
+    window: 128 splits of 2 rows): the merge that reads the partials one
+    output at a time; bitwise from run to run."""
+    from repro_torch.kernels.swa_attention.kernel import (num_splits,
+                                                          swa_decode_attention)
+    from repro_torch.kernels.swa_attention.ref import swa_decode_plain
+    dt = getattr(torch, dtype)
+    q, k, v, pos, base = _swa_inputs(cuda, 2, 1, 2, 64, 20000, dt, seed=7)
+    assert num_splits(2, 1, 2, 20000, 0) > 64
+    got = swa_decode_attention(q, k, v, pos, base, window=0)
+    again = swa_decode_attention(q, k, v, pos, base, window=0)
+    want = swa_decode_plain(q, k, v, pos, base, window=0)
+    torch.cuda.synchronize()
+    assert _swa_within(got, want, dtype)
+    assert torch.equal(got, again)
 
 
 def test_swa_decode_kernel_checks_and_counts(cuda):

@@ -257,3 +257,18 @@ def test_dense_compressors_match_reference():
     np.testing.assert_allclose(q.numpy(), np.round(q.numpy()), atol=1e-4)
     jq = JC.qsgd_q(jnp.asarray(x.numpy()), jax.random.PRNGKey(0))
     assert np.asarray(jq).shape == tuple(q.shape)
+
+
+@pytest.mark.parametrize("d,want", [(32, 64), (256, 64), (512, 64),
+                                    (1000, 64), (4096, 256), (8192, 512)])
+def test_sync_slice_rows(d, want):
+    """``sync_step``'s rows of A a block: a power of two in [64, 512] that
+    depends on d alone, halved until one case has ``SYNC_BLOCKS`` blocks
+    (or 64 rows are reached)."""
+    from repro_torch.kernels.sim_step.kernel import (SYNC_BLOCKS, SYNC_TN,
+                                                     sync_slice_rows)
+    rs = sync_slice_rows(d)
+    assert rs == want
+    blocks = -(-d // SYNC_TN) * -(-d // rs)
+    assert rs == 64 or blocks >= SYNC_BLOCKS
+    assert rs == 512 or -(-d // SYNC_TN) * -(-d // (2 * rs)) < SYNC_BLOCKS
