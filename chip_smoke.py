@@ -63,9 +63,11 @@ Phases (any failure exits non-zero):
 15. one steady decode step of that engine under ``torch.profiler``;
 16. ``ssd_chunked`` (K10) against its plain version: the hybrid serving
     path's shape (batch 4, T 4096, 64 heads of 112, N 64) in bf16 and f32,
-    T = 128, hd 64 with N 32, hd = N = 128, no decay and decays near -20;
-    each case twice (bitwise), within the stated limits, and timed beside
-    its bound;
+    the same at batch 1 (phase 19's prefill), T = 128, hd 64 with N 32,
+    hd = N = 128, hd 40 with N 24 (off the 16-wide tiles), T = 8 with
+    hd = N = 16, no decay and decays near -20; each case twice (bitwise),
+    within the stated limits; the path's shape in bf16 and f32, and batch
+    1 in bf16, timed beside their bound;
 17. zamba2-7b-smoke's prefill and decode steps on the card against the
     CPU: 2 layers in bf16, and 7 layers with the shared block every 3 in
     f32 (bf16 logged);
@@ -112,11 +114,19 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory (data sheet)
 FP32_FLOPS_PER_S = 67e12            # H100 SXM FP32 outside the tensor cores
 TOPK_RATIO = 1 / 16
-# K7's and K9's times before their redesign, one device_ms reading each,
-# recorded by this script on an H100 80GB HBM3 at 700.00 W (PERF.md's
+# K7's, K9's and K10's times before their redesign, one device_ms reading
+# each, recorded by this script on an H100 80GB HBM3 at 700.00 W (PERF.md's
 # kernel table): logged as recorded, never measured here nor put in the
 # kernels' JSON line
-EARLIER_MS = {"swa_decode_attention": 0.1454, "sync_step": 0.0581}
+EARLIER_MS = {"swa_decode_attention": 0.1454, "sync_step": 0.0581,
+              "ssd_chunked": 8.970}
+# the hybrid path before K10's redesign, recorded by this script in the same
+# way (its last run before the redesign): phase 18's batch-4 prefill (s) and
+# phase 19's batch-1 prefill, its wall with the profiler on and K10's device
+# time in it (ms)
+EARLIER_HYBRID = {"batch-4 prefill s": 2.8984,
+                  "batch-1 prefill wall ms": 946.14,
+                  "batch-1 prefill K10 ms": 361.191}
 # leaf row lengths of full-width qwen3-1.7b on the main path (M = 1)
 R_WK = 28 * 2048 * 8 * 128          # layers/attn/wk: 58,720,256
 R_WGATE = 28 * 2048 * 6144          # layers/mlp/w_gate: 352,321,536
@@ -1454,15 +1464,20 @@ def profile_serve(torch, engine) -> None:
 # ---------------------------------------------------------------------------
 
 # K10 at the serving path's shape: batch 4, prompt 4096, 64 heads of 112,
-# state 64 (chunk 128)
+# state 64 (chunk 128); and at phase 19's batch 1
 SSD_PATH = (4, 4096, 64, 112, 64)
-# (shape, dtype, log-decays): the path's shape in bf16 and f32; one chunk;
-# hd 64 and N 32; the largest hd and N the kernel takes (231,936 bytes of
-# shared memory); no decay; decays near -20 (exp underflows across a chunk)
+SSD_BATCH1 = (1, 4096, 64, 112, 64)
+# (shape, dtype, log-decays): the path's shape in bf16 and f32, and at batch
+# 1; one chunk; hd 64 and N 32; the largest hd and N the kernel takes; hd
+# and N off the 16-wide tiles (padded with zeros); T = 8, one short chunk;
+# no decay; decays near -20 (exp underflows across a chunk)
 SSD_CASES = ((SSD_PATH, "bfloat16", "u"), (SSD_PATH, "float32", "u"),
+             (SSD_BATCH1, "bfloat16", "u"),
              ((4, 128, 64, 112, 64), "bfloat16", "u"),
              ((4, 256, 64, 64, 32), "bfloat16", "u"),
              ((2, 256, 8, 128, 128), "float32", "u"),
+             ((2, 384, 8, 40, 24), "bfloat16", "u"),
+             ((2, 8, 4, 16, 16), "float32", "u"),
              (SSD_PATH, "bfloat16", "zero"), (SSD_PATH, "bfloat16", "-20"))
 # K10 against its plain version, element by element.  f32 y and the state:
 # within SSD_REL of the plain version's largest magnitude (an H100 80GB
@@ -1486,8 +1501,8 @@ HYBRID_PROMPT, HYBRID_GEN, HYBRID_BATCH = 4096, 32, 4
 # wins (the reference's own jitted and eager forwards differ there by
 # 1.38; the H100 read 0.183)
 HYBRID_BF16_TOL, HYBRID_F32_TOL = 0.05, 1e-3
-HYBRID_GROUPS = (
-    ("K10 ssd_chunked", ("ssd_chunk_kernel",)),
+HYBRID_GROUPS = (        # K10's passes: ssd_chunk_state, _scan, _out
+    ("K10 ssd_chunked", ("ssd_chunk_",)),
     ("matmul", ("nvjet", "gemm", "gemv", "xmma", "cutlass", "cublas",
                 "sm90_", "sm80_")),
 )
@@ -1559,7 +1574,8 @@ def check_ssd(torch, dev, gen, records):
             f"run-to-run bitwise {same}, finite {finite}")
         require(over <= 1 and s_over <= 1 and same and finite,
                 f"ssd_chunked {tag} != plain version")
-        if shape == SSD_PATH and decay == "u":
+        if shape in (SSD_PATH, SSD_BATCH1) and decay == "u" and (
+                dtype == "bfloat16" or shape == SSD_PATH):
             ms, call = device_ms(torch, lambda: ssd_chunked(*args))
             plain, _ = device_ms(torch, lambda: ssd_plain(*args), iters=5)
             nbytes, flops = ssd_bytes_flops(shape, y.element_size())
@@ -1574,7 +1590,7 @@ def check_ssd(torch, dev, gen, records):
                 f"ms, bound {bnd:.4f} ms ({by}; {nbytes} bytes, {flops:.4e} "
                 f"operations at {rate:.3g}/s = {t_ops:.4f} ms); no single "
                 f"PyTorch call computes the chunked scan")
-            if dtype == "bfloat16":
+            if dtype == "bfloat16" and shape == SSD_PATH:
                 records[ssd_chunked.name] = dict(
                     name=ssd_chunked.name, route="cuda",
                     source=ssd_chunked.source,
@@ -1693,6 +1709,9 @@ def run_hybrid_serve(torch, kernels):
         f"in {decode_s:.4f} s); {n_tok / out['wall_s']:.4f} tokens/s end to "
         f"end; peak memory {peak} bytes ({peak / total:.4f} of {total}); "
         f"launches {json.dumps(counts)}")
+    log(f"hybrid path: prefill {prefill_s:.4f} s against "
+        f"{EARLIER_HYBRID['batch-4 prefill s']} s before K10's redesign "
+        f"(recorded, not measured in this run)")
     require(counts["ssd_chunked"] == cfg.n_layers,
             f"ssd_chunked launched {counts['ssd_chunked']} times, not "
             f"{cfg.n_layers} (one batched prefill)")
@@ -1744,8 +1763,15 @@ def profile_hybrid(torch) -> None:
             step()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        log_groups(title, wall, *device_groups(
-            torch, prof, HYBRID_GROUPS, "shared_attention", "attention"))
+        groups, per_name = device_groups(torch, prof, HYBRID_GROUPS,
+                                         "shared_attention", "attention")
+        log_groups(title, wall, groups, per_name)
+        if "prefill" in title:
+            k10_ms = groups.get("K10 ssd_chunked", (0.0, 0))[0] / 1e3
+            log(f"  K10 group {k10_ms:.3f} ms and wall {wall * 1e3:.2f} ms "
+                f"against {EARLIER_HYBRID['batch-1 prefill K10 ms']} ms and "
+                f"{EARLIER_HYBRID['batch-1 prefill wall ms']} ms before "
+                f"K10's redesign (recorded, not measured in this run)")
     del params, cache
 
 

@@ -1,11 +1,12 @@
 """Launcher of the CUDA chunked SSD scan kernel (``csrc/ssd_chunked.cu``,
 K10).
 
-The wrapper checks device, dtype, shape and contiguity, allocates ``y``
-and the final state with ``torch.empty``, launches one block per (batch,
-head) on the current stream, raises on a non-zero launch error and counts
-its launches in ``.launches``.  The kernel has no backward: a call that
-autograd would have to differentiate raises.
+The wrapper checks device, dtype, shape and contiguity, allocates ``y``,
+the final state and the workspace of the chunk states with
+``torch.empty``, launches the kernel's three passes (chunk states, the
+scan over chunks, outputs) on the current stream, raises on a non-zero
+launch error and counts each call once in ``.launches``.  The kernel has
+no backward: a call that autograd would have to differentiate raises.
 """
 from __future__ import annotations
 
@@ -23,11 +24,15 @@ MAX_DIM = 128          # hd, N and the chunk
 def _lib():
     lib = _build.load("ssd_chunked")
     if not getattr(lib, "_typed", False):
-        lib.ssd_chunked_launch.argtypes = ([_VP] * 6 + [_LL] * 6
+        lib.ssd_chunked_launch.argtypes = ([_VP] * 9 + [_LL] * 6
                                            + [ctypes.c_int, _VP])
         lib.ssd_chunked_launch.restype = ctypes.c_int
         lib._typed = True
     return lib
+
+
+def _pad16(v: int) -> int:
+    return (v + 15) // 16 * 16
 
 
 def _need(cond: bool, msg: str) -> None:
@@ -87,11 +92,23 @@ class SsdChunked:
             y = torch.empty_like(xh)
             state = torch.empty((b, h, hd, n), dtype=torch.float32,
                                 device=dev)
+            # the workspace, hd and N padded to 16: each chunk's state D
+            # (f32 inputs: then the state the chunk starts from), exp(cum)
+            # at each chunk's end and, for bf16 inputs, the starting states
+            # in 3 bf16 parts
+            nc, hdp, np_ = t // c, _pad16(hd), _pad16(n)
+            bf16 = xh.dtype == torch.bfloat16
+            ws = torch.empty((b, h, nc, hdp, np_), dtype=torch.float32,
+                             device=dev)
+            el = torch.empty((b, h, nc), dtype=torch.float32, device=dev)
+            sp = torch.empty((b, h, nc, 3, hdp, np_) if bf16 else (0,),
+                             dtype=torch.bfloat16, device=dev)
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.ssd_chunked_launch(
                 xh.data_ptr(), a.data_ptr(), bmat.data_ptr(),
-                cmat.data_ptr(), y.data_ptr(), state.data_ptr(), b, t, h, hd,
-                n, c, int(xh.dtype == torch.bfloat16), stream)
+                cmat.data_ptr(), y.data_ptr(), state.data_ptr(),
+                ws.data_ptr(), el.data_ptr(), sp.data_ptr() if bf16 else None,
+                b, t, h, hd, n, c, int(bf16), stream)
         _build.check(rc, self.name)
         self.launches += 1
         return y, state

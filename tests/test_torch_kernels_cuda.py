@@ -582,6 +582,47 @@ def test_ssd_chunked_kernel_matches_plain(cuda, shape, dtype):
     assert float((s - ps).abs().max()) <= 4e-6 * float(ps.abs().max())
 
 
+@pytest.mark.parametrize("shape,dtype,decay", [
+    ((1, 4096, 64, 112, 64), "bfloat16", "u"),    # phase 19's batch 1
+    ((2, 384, 8, 40, 24), "bfloat16", "u"),       # hd, N off the 16 tiles
+    ((2, 8, 4, 16, 16), "float32", "u"),          # T = 8: one short chunk
+    ((1, 100, 3, 20, 5), "float32", "u"),         # rows off 16 bytes, H % 4
+    ((2, 512, 8, 112, 64), "bfloat16", "zero"),   # no decay
+    ((2, 512, 8, 112, 64), "bfloat16", "-20")])   # exp underflows
+def test_ssd_chunked_kernel_cases(cuda, shape, dtype, decay):
+    """The three passes at the batch-1 path shape, ragged tiles (rows that
+    are not 16-byte multiples are staged element by element), a short
+    chunk and extreme decays: within the limits of the test above, bitwise
+    from run to run, one launch counted per call."""
+    from repro_torch.kernels.ssd.kernel import ssd_chunked
+    from repro_torch.kernels.ssd.ref import ssd_plain
+    b, t, h, hd, n = shape
+    rng = np.random.default_rng(t + hd + n)
+    dt = getattr(torch, dtype)
+
+    def arr(*s):
+        return torch.from_numpy(rng.standard_normal(s).astype(np.float32)
+                                ).to(cuda)
+
+    x, bm, cm = arr(b, t, h, hd).to(dt), arr(b, t, n).to(dt), \
+        arr(b, t, n).to(dt)
+    u = rng.uniform(size=(b, t, h)).astype(np.float32)
+    a = torch.from_numpy({"u": -0.1 * u, "zero": 0.0 * u,
+                          "-20": -20.0 - u}[decay]).to(cuda)
+    before = ssd_chunked.launches
+    y, s = ssd_chunked(x, a, bm, cm)
+    assert ssd_chunked.launches == before + 1
+    y2, s2 = ssd_chunked(x, a, bm, cm)
+    py, ps = ssd_plain(x, a, bm, cm)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(s, s2)
+    assert bool(torch.isfinite(y.float()).all() and torch.isfinite(s).all())
+    rtol = 2.0 ** -7 if dtype == "bfloat16" else 0.0
+    limit = 4e-6 * py.float().abs().max() + rtol * py.float().abs()
+    assert bool(((y.float() - py.float()).abs() <= limit).all())
+    assert float((s - ps).abs().max()) <= 4e-6 * float(ps.abs().max())
+
+
 def test_ssd_chunked_kernel_raises_on_what_it_does_not_take(cuda):
     from repro_torch.kernels.ssd import ops as SSD
     from repro_torch.kernels.ssd.kernel import ssd_chunked
