@@ -9,7 +9,11 @@ Phases (any failure exits non-zero):
    kernel build, one ``nvcc`` per CUDA source, all started together;
 2. every kernel of the training main path against its plain PyTorch
    version at the main path's shapes, timed with CUDA events beside its
-   byte bound and the nearest single PyTorch call;
+   byte bound and the nearest single PyTorch call; ``topk_ef`` (K1) also
+   at the small leaves (R = 2,048, 3,584, 57,344; the first and last
+   timed), rows off 16 bytes (R = 257, M = 8), and two rows whose threshold
+   bin overflows the candidate list (an all-zero row with -0.0, and ties),
+   its picks bitwise in the documented order and bitwise run to run;
 3. a small-input check of the path on the card against the same code on
    the CPU (plain versions), and the smoke model's loss on both;
 4. the main path: full-width qwen3-1.7b, ``--sync async --compressor topk
@@ -19,12 +23,14 @@ Phases (any failure exits non-zero):
    before and read just after;
 5. 2 steps of the same with ``--compressor onebit`` (the one-bit deposit);
 6. one more top-k step of the phase-4 configuration under
-   ``torch.profiler``: device time by kernel and the device-busy share;
+   ``torch.profiler``: device time by kernel and the device-busy share, and
+   at most 5 device kernels a ``topk_ef`` call;
 7. the simulator's kernels against their plain versions: ``delivery_step``
    (both bodies) and ``sync_step`` at (p, d) = (8, 32), (16, 512),
    (32, 4096), d = 100 and B = 16 cases at (16, 256) with A shared and
    stacked; ``onebit_ef`` at the matching (rows, d); ``topk_ef`` at the
-   simulator's (8, 32), k = 8, with ties; each run twice (bitwise) and
+   simulator's (8, 32), k = 8, with ties, its picks in the documented
+   order; each run twice (bitwise) and
    timed beside its bound, ``sync_step`` at B = 1 in turns with
    ``torch.addmm``;
 8. Table 1 (``bench_table1_bounds.py``'s nine relaxations and shared
@@ -96,7 +102,8 @@ Phases (any failure exits non-zero):
     ``topk_cr_reduce`` launches), then 2 steps of ``--sync onebit_ef``
     (26 ``onebit_cr_reduce``) and 2 of ``--sync elastic``; launch counters
     zeroed just before each run and read just after;
-23. one ``topk_ef`` sync step under ``torch.profiler``.
+23. one ``topk_ef`` sync step under ``torch.profiler`` (at most 5 device
+    kernels a ``topk_ef`` call).
 
 The last three lines of standard output are the kernels' JSON record, the
 card's name and power limit, and the result ``{"ok": true, "device":
@@ -114,11 +121,12 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory (data sheet)
 FP32_FLOPS_PER_S = 67e12            # H100 SXM FP32 outside the tensor cores
 TOPK_RATIO = 1 / 16
-# K7's, K9's and K10's times before their redesign, one device_ms reading
-# each, recorded by this script on an H100 80GB HBM3 at 700.00 W (PERF.md's
-# kernel table): logged as recorded, never measured here nor put in the
-# kernels' JSON line
-EARLIER_MS = {"swa_decode_attention": 0.1454, "sync_step": 0.0581,
+# K1's, K6's, K7's, K9's and K10's times before their redesign, recorded by
+# this script on an H100 80GB HBM3 at 700.00 W (PERF.md's kernel table; K1
+# a CUDA-event time over 5 calls, the others one device_ms reading each):
+# logged as recorded, never measured here nor put in the kernels' JSON line
+EARLIER_MS = {"topk_ef": 5.733, "delivery_step": 0.2004,
+              "swa_decode_attention": 0.1454, "sync_step": 0.0581,
               "ssd_chunked": 8.970}
 # the hybrid path before K10's redesign, recorded by this script in the same
 # way (its last run before the redesign): phase 18's batch-4 prefill (s) and
@@ -132,9 +140,8 @@ R_WK = 28 * 2048 * 8 * 128          # layers/attn/wk: 58,720,256
 R_WGATE = 28 * 2048 * 6144          # layers/mlp/w_gate: 352,321,536
 # device kernels of a profiled step, by what launched them (first match)
 PROFILE_GROUPS = (
-    ("K1 topk_ef", ("init_kernel", "hist0_kernel", "histn_kernel",
-                    "select_kernel", "count_kernel", "scan_kernel",
-                    "write_kernel")),
+    ("K1 topk_ef", ("topk_ef_hist", "topk_ef_cand", "topk_ef_digit",
+                    "topk_ef_place")),
     ("K2 topk_cr_deposit", ("deposit_kernel",)),
     ("K3 onebit_cr_deposit", ("onebit_deposit",)),
     ("K4 topk_cr_reduce", ("topk_reduce_",)),
@@ -224,45 +231,81 @@ def require(cond: bool, what: str) -> None:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_topk_ef(torch, dev, gen, records):
-    from repro_torch.kernels.topk_ef.kernel import topk_ef
-    from repro_torch.kernels.topk_ef.ref import q_dense, topk_ef_plain
+def _topk_check(torch, topk_ef, topk_ef_plain, g, e, k):
+    """K1 against its plain version: the picks bitwise in the documented
+    order (above the threshold, then the ties, each in index order), the
+    residual bitwise, and every output bitwise from run to run.  -> (order
+    bitwise, residual bitwise, run to run bitwise, max |kernel - plain|)."""
+    from repro_torch.kernels.topk_ef.ref import documented_order
+    kv, ki, ke = topk_ef(g, e, k)
+    again = topk_ef(g, e, k)
+    pv, pi, pe = topk_ef_plain(g, e, k)
+    torch.cuda.synchronize()
+    dv, di = documented_order(pv, pi)
+    order = torch.equal(ki, di) and torch.equal(kv.view(torch.int32),
+                                                dv.view(torch.int32))
+    same_e = torch.equal(ke.view(torch.int32), pe.view(torch.int32))
+    repeat = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                 for a, b in zip((kv, ki, ke), again))
+    err = max(float((kv - dv).abs().max()), float((ke - pe).abs().max()))
+    return order, same_e, repeat, err
 
-    def inputs(m, r, ties=False):
-        if ties:
+
+def check_topk_ef(torch, dev, gen, records):
+    from repro_torch.kernels.topk_ef.kernel import candidate_cap, topk_ef
+    from repro_torch.kernels.topk_ef.ref import topk_ef_plain
+
+    def inputs(m, r, kind):
+        if kind == "ties":          # few magnitudes; the last row all zero
             g = torch.randint(-2, 3, (m, r), generator=gen, device=dev).float()
             e = 0.5 * torch.randint(-1, 2, (m, r), generator=gen,
                                     device=dev).float()
             g[-1] = 0.0
-            e[-1] = 0.0            # an all-zero row
+            e[-1] = 0.0
+        elif kind == "zeros":       # -0.0 beside 0.0, no residual
+            g = torch.zeros((m, r), device=dev)
+            g[:, ::3] = -0.0
+            e = None
         else:
             g = torch.randn((m, r), generator=gen, device=dev)
             e = 0.1 * torch.randn((m, r), generator=gen, device=dev)
         return g, e
 
+    # (M, R, kind): the path's leaves (w_gate, wk, the stacked norms,
+    # q_norm / k_norm, the final norm), ties with an all-zero row, rows off
+    # 16 bytes (R % 4 != 0), and two rows whose threshold bin overflows
+    # the candidate list (the second route)
     worst = 0.0
-    for m, r, ties in ((8, 4096, True), (1, R_WK, False),
-                       (1, R_WGATE, False)):
+    for m, r, kind in ((8, 4096, "ties"), (8, 257, "ties"),
+                       (1, 2048, "gauss"), (1, 3584, "gauss"),
+                       (1, 57344, "gauss"), (1, 1 << 22, "zeros"),
+                       (2, 1 << 22, "ties"), (1, R_WK, "gauss"),
+                       (1, R_WGATE, "gauss")):
         k = max(1, int(round(r * TOPK_RATIO)))
-        g, e = inputs(m, r, ties)
-        kv, ki, ke = topk_ef(g, e, k)
-        pv, pi, pe = topk_ef_plain(g, e, k)
-        torch.cuda.synchronize()
-        same_idx = torch.equal(torch.sort(ki, 1).values,
-                               torch.sort(pi, 1).values)
-        qk, qp = q_dense(kv, ki, r), q_dense(pv, pi, r)
-        same_q = torch.equal(qk.view(torch.int32), qp.view(torch.int32))
-        same_e = torch.equal(ke.view(torch.int32), pe.view(torch.int32))
-        err = max(float((qk - qp).abs().max()), float((ke - pe).abs().max()))
+        g, e = inputs(m, r, kind)
+        w = g if e is None else e + g
+        keys = w[0].view(torch.int32) & 0x7fffffff
+        t = int(torch.topk(keys, k).values[-1])
+        in_bin = int(((keys >> 20) == (t >> 20)).sum())
+        del w, keys
+        order, same_e, repeat, err = _topk_check(torch, topk_ef,
+                                                 topk_ef_plain, g, e, k)
         worst = max(worst, err)
-        log(f"check topk_ef ({m}, {r}) k={k} ties={ties}: idx sets equal "
-            f"{same_idx}, Q bitwise {same_q}, new_err bitwise {same_e}, "
-            f"max_abs_err {err}")
-        require(same_idx and same_q and same_e, "topk_ef != plain version")
-        del kv, ki, ke, pv, pi, pe, qk, qp
+        route = "overflow" if in_bin > candidate_cap(r) else "list"
+        log(f"check topk_ef ({m}, {r}) k={k} {kind}: threshold bin of row 0 "
+            f"{in_bin} keys, cap {candidate_cap(r)} ({route}); vals/idx "
+            f"bitwise in the documented order {order}, new_err bitwise "
+            f"{same_e}, run-to-run bitwise {repeat}, max_abs_err {err}")
+        require(order and same_e and repeat, "topk_ef != plain version")
+        if r in (2048, 57344):
+            ms, call = device_ms(torch, lambda: topk_ef(g, e, k))
+            plain, pcall = device_ms(torch, lambda: topk_ef_plain(g, e, k))
+            log(f"time topk_ef ({m}, {r}) k={k}: kernel {ms:.4f} ms on the "
+                f"device ({call:.4f} ms a call from the host), plain "
+                f"{plain:.4f} ms ({pcall:.4f}), bound "
+                f"{bound_ms(12 * m * r + 8 * m * k):.6f} ms")
         if r == R_WGATE:
-            w = e + g
-            absw = w.abs()
+            absw = (e + g).abs()
             ms = time_ms(torch, lambda: topk_ef(g, e, k), warmup=2, iters=5)
             plain = time_ms(torch, lambda: topk_ef_plain(g, e, k))
             lib = time_ms(torch, lambda: torch.topk(absw, k, dim=1))
@@ -275,9 +318,10 @@ def check_topk_ef(torch, dev, gen, records):
             log(f"time topk_ef ({m}, {r}) k={k}: kernel {ms:.3f} ms, plain "
                 f"{plain:.3f} ms, torch.topk {lib:.3f} ms, bound "
                 f"{bound_ms(nbytes):.3f} ms ({nbytes} bytes)")
-            del w, absw
+            del absw
         del g, e
         torch.cuda.empty_cache()
+    records[topk_ef.name]["max_abs_err"] = worst
 
 
 def _deposit_case(torch, dev, gen, r, k, slots, weights):
@@ -543,6 +587,10 @@ def profile_step(torch, title: str = "profile step", sync=None) -> None:
         log(f"  group {group:<24s} {us / 1e3:9.3f} ms  x{count}")
     for key, us, count in sorted(rows, key=lambda r: -r[1])[:12]:
         log(f"  {us / 1e3:9.3f} ms  x{count:<5d} {key[:100]}")
+    # K1 compresses each of the 13 leaves for each of the 2 workers
+    k1 = groups.get("K1 topk_ef", (0.0, 0))[1]
+    log(f"  K1 device kernels a call: {k1 / 26:.2f} ({k1} in 26 calls)")
+    require(0 < k1 <= 5 * 26, f"K1 launched {k1} kernels in 26 calls")
 
 
 # ---------------------------------------------------------------------------
@@ -730,27 +778,20 @@ def check_onebit_ef(torch, dev, gen, records):
 
 def check_topk_ef_sim_shape(torch, dev, gen):
     """K1 at the simulator's shape: (p, d) = (8, 32), k = 8 (ratio 0.25),
-    with many ties at the threshold."""
+    with many ties at the threshold and an all-zero row."""
     from repro_torch.kernels.topk_ef.kernel import topk_ef
-    from repro_torch.kernels.topk_ef.ref import q_dense, topk_ef_plain
+    from repro_torch.kernels.topk_ef.ref import topk_ef_plain
     m, r, k = 8, 32, 8
     g = torch.randint(-2, 3, (m, r), generator=gen, device=dev).float()
     e = 0.5 * torch.randint(-1, 2, (m, r), generator=gen, device=dev).float()
     g[-1] = 0.0
     e[-1] = 0.0
-    kv, ki, ke = topk_ef(g, e, k)
-    pv, pi, pe = topk_ef_plain(g, e, k)
-    kv2, ki2, ke2 = topk_ef(g, e, k)
-    torch.cuda.synchronize()
-    same_idx = torch.equal(torch.sort(ki, 1).values, torch.sort(pi, 1).values)
-    same_q = torch.equal(q_dense(kv, ki, r), q_dense(pv, pi, r))
-    same_e = torch.equal(ke, pe)
-    repeat = torch.equal(ki, ki2) and torch.equal(kv, kv2) and \
-        torch.equal(ke, ke2)
-    log(f"check topk_ef sim shape ({m}, {r}) k={k} ties: idx sets equal "
-        f"{same_idx}, Q bitwise {same_q}, new_err bitwise {same_e}, "
+    order, same_e, repeat, _ = _topk_check(torch, topk_ef, topk_ef_plain, g,
+                                           e, k)
+    log(f"check topk_ef sim shape ({m}, {r}) k={k} ties: vals/idx bitwise in "
+        f"the documented order {order}, new_err bitwise {same_e}, "
         f"run-to-run bitwise {repeat}")
-    require(same_idx and same_q and same_e and repeat,
+    require(order and same_e and repeat,
             "topk_ef != plain version at the simulator's shape")
     nbytes = 12 * m * r + 8 * m * k
     ms, call = device_ms(torch, lambda: topk_ef(g, e, k))

@@ -10,9 +10,10 @@ The wrappers check device, dtype, shape and contiguity, allocate the
 outputs with ``torch.empty``, launch on the current stream, raise on a
 non-zero launch error and count their launches in ``.launches``.  Each
 keeps zeroed ticket counters per device across launches (each launch
-leaves them zeroed): one per case for ``delivery_step``, one per (case,
-column tile) for ``sync_step``.  So the launches of one wrapper on one
-device must be ordered: one stream at a time.
+leaves them zeroed): one per (case, column tile) and one per case for
+``delivery_step``, one per (case, column tile) for ``sync_step``.  So the
+launches of one wrapper on one device must be ordered: one stream at a
+time.
 """
 from __future__ import annotations
 
@@ -28,6 +29,10 @@ MAX_WORKERS = 64
 SYNC_TN = 128             # sync_step: columns of A a block
 SYNC_RS_MAX, SYNC_RS_MIN = 512, 64   # rows of A a block, at most and least
 SYNC_BLOCKS = 384         # blocks of one case to reach: 3 an SM or more
+DV_WALK_D = 512           # delivery_step: up to here one block walks every row
+DV_TN = 128               # above: columns of A a block
+DV_RS_MAX, DV_RS_MIN = 256, 64       # rows of A a block, at most and least
+DV_BLOCKS = 192           # blocks of one case to reach
 
 
 @functools.lru_cache(maxsize=None)
@@ -43,12 +48,29 @@ def sync_slice_rows(d: int) -> int:
     return rs
 
 
+@functools.lru_cache(maxsize=None)
+def delivery_slice_rows(d: int) -> int:
+    """Rows of A each ``delivery_step`` block sums.  Up to d = 512 every
+    row: one slice, the walk (one block per 32 columns and case, where the
+    time is latency); above, the split into blocks of 128 columns and a
+    slice of rows halved from 256 (down to 64) until one case has
+    ``DV_BLOCKS`` blocks.  It depends on d alone, so a case's summation
+    order never depends on B, the groups or the card."""
+    if d <= DV_WALK_D:
+        return d
+    tiles = -(-d // DV_TN)
+    rs = DV_RS_MAX
+    while rs > DV_RS_MIN and tiles * -(-d // rs) < DV_BLOCKS:
+        rs //= 2
+    return rs
+
+
 def _lib():
     lib = _build.load("sim_step")
     if not getattr(lib, "_typed", False):
-        lib.sim_delivery_partial_floats.argtypes = [_LL, _LL, _LL]
+        lib.sim_delivery_partial_floats.argtypes = [_LL] * 4
         lib.sim_delivery_partial_floats.restype = _LL
-        lib.sim_delivery_launch.argtypes = [_VP] * 13 + [_LL] * 4 + [_VP]
+        lib.sim_delivery_launch.argtypes = [_VP] * 13 + [_LL] * 5 + [_VP]
         lib.sim_delivery_launch.restype = ctypes.c_int
         lib.sim_sync_launch.argtypes = [_VP] * 8 + [_LL] * 4 + [_VP]
         lib.sim_sync_launch.restype = ctypes.c_int
@@ -112,6 +134,7 @@ class DeliveryStep:
         if defer is not None:
             _check(name, defer, (b, p, d), "defer", dev)
         group = _problem_group(name, a, x_star, b, d, dev)
+        rs = delivery_slice_rows(d)
         lib = _lib()
         with torch.cuda.device(dev):
             x_out = torch.empty_like(x)
@@ -119,9 +142,9 @@ class DeliveryStep:
             defer_out = torch.empty_like(v) if defer is not None else None
             sq = torch.empty((b, p), dtype=torch.float32, device=dev)
             partial = torch.empty(
-                int(lib.sim_delivery_partial_floats(b, p, d)),
+                int(lib.sim_delivery_partial_floats(b, p, d, rs)),
                 dtype=torch.float32, device=dev)
-            ticket = self._ticket(dev, b)
+            ticket = self._ticket(dev, b * (-(-d // DV_TN) + 1))
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.sim_delivery_launch(
                 v.data_ptr(), x.data_ptr(), a.data_ptr(), x_star.data_ptr(),
@@ -130,7 +153,7 @@ class DeliveryStep:
                 x_out.data_ptr(), v_out.data_ptr(),
                 defer_out.data_ptr() if defer_out is not None else None,
                 partial.data_ptr(), sq.data_ptr(), ticket.data_ptr(), b, p, d,
-                group, stream)
+                rs, group, stream)
         _build.check(rc, name)
         self.launches += 1
         return x_out, v_out, defer_out, sq

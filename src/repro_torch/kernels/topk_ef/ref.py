@@ -28,3 +28,15 @@ def q_dense(vals: torch.Tensor, idx: torch.Tensor, r: int) -> torch.Tensor:
     q = torch.zeros((vals.shape[0], r), dtype=torch.float32,
                     device=vals.device)
     return q.scatter_add_(1, idx.long(), vals.float())
+
+
+def documented_order(vals: torch.Tensor, idx: torch.Tensor):
+    """Reorder one call's picks, (M, k) in any order, into the order the
+    kernel writes them: per row every pick whose ``|w|`` is above the
+    smallest picked ``|w|`` first, then the ties at it, each group in index
+    order.  Magnitudes compare as the bit patterns of ``|w|``, so ``-0.0``
+    ties ``0.0``."""
+    key = vals.contiguous().view(torch.int32) & 0x7fffffff
+    tie = (key == key.min(1, keepdim=True).values).long()
+    order = torch.argsort(tie * (1 << 32) + idx.long(), dim=1)
+    return torch.gather(vals, 1, order), torch.gather(idx, 1, order)

@@ -20,7 +20,8 @@ from repro_torch.kernels.cr_reduce.kernel import (onebit_cr_deposit,  # noqa: E4
 from repro_torch.kernels.cr_reduce.ref import (  # noqa: E402
     onebit_cr_deposit_plain, topk_cr_deposit_plain)
 from repro_torch.kernels.topk_ef.kernel import topk_ef  # noqa: E402
-from repro_torch.kernels.topk_ef.ref import q_dense, topk_ef_plain  # noqa: E402
+from repro_torch.kernels.topk_ef.ref import (documented_order,  # noqa: E402
+                                             q_dense, topk_ef_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -76,6 +77,62 @@ def test_topk_ef_kernel_residual_in_place_and_no_residual(cuda):
     torch.cuda.synchronize()
     assert torch.equal(torch.sort(ni, 1).values, torch.sort(pi, 1).values)
     assert torch.equal(ne, pe)
+
+
+def _topk_in_documented_order(cuda, g, e, k):
+    """K1 against its plain version with the picks in the documented order
+    (above the threshold, then the ties, each in index order): vals, idx
+    and the residual bitwise, and bitwise from run to run."""
+    tg = torch.from_numpy(g).to(cuda)
+    te = None if e is None else torch.from_numpy(e).to(cuda)
+    kv, ki, ke = topk_ef(tg, te, k)
+    again = topk_ef(tg, te, k)
+    pv, pi, pe = topk_ef_plain(tg, te, k)
+    torch.cuda.synchronize()
+    dv, di = documented_order(pv, pi)
+    assert torch.equal(ki, di)
+    assert torch.equal(kv.view(torch.int32), dv.view(torch.int32))
+    assert torch.equal(ke.view(torch.int32), pe.view(torch.int32))
+    for a, b in zip((kv, ki, ke), again):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("r", [2048, 3584, 57344])
+def test_topk_ef_kernel_small_leaves(cuda, r):
+    """The path's small leaves (the final norm, q_norm / k_norm, the
+    stacked norms) at ratio 1/16."""
+    g, e = _rows((2, r), seed=r, ties=False)      # row 1 is all zero
+    _topk_in_documented_order(cuda, g[:1].copy(), e[:1].copy(), r // 16)
+
+
+@pytest.mark.parametrize("kind", ["zeros", "ties"])
+def test_topk_ef_kernel_overflow_route(cuda, kind):
+    """Rows whose threshold bin holds more keys than the candidate list
+    (``candidate_cap``: R / 16 here) take the second route on the device:
+    an all-zero row with -0.0 beside 0.0, and few distinct magnitudes."""
+    from repro_torch.kernels.topk_ef.kernel import candidate_cap
+    r = 1 << 22
+    if kind == "zeros":
+        g = np.zeros((1, r), np.float32)
+        g[0, ::3] = -0.0
+        e = None
+    else:
+        g, e = _rows((2, r), seed=7, ties=True)   # row 1 is all zero
+        g, e = g[:1].copy(), e[:1].copy()
+    w = g if e is None else e + g
+    keys = w.view(np.uint32) & 0x7fffffff
+    k = r // 16
+    t = np.sort(keys[0])[::-1][k - 1]
+    assert ((keys[0] >> 20) == (t >> 20)).sum() > candidate_cap(r)
+    _topk_in_documented_order(cuda, g, e, k)
+
+
+@pytest.mark.parametrize("m,r,k", [(8, 257, 16), (8, 1001, 100),
+                                   (3, 3, 2)])
+def test_topk_ef_kernel_unaligned_rows(cuda, m, r, k):
+    """M = 8 with R % 4 != 0: rows start off 16 bytes (the scalar route)."""
+    g, e = _rows((m, r), seed=r, ties=True)
+    _topk_in_documented_order(cuda, g, e, k)
 
 
 def _deposit_inputs(cuda, m, r, k, seed=0):
@@ -308,6 +365,36 @@ def test_sync_step_kernel_batch_is_bitwise_its_single_cases(cuda, d):
                             nsum[i:i + 1].contiguous(), c[i:i + 1].contiguous())
             assert torch.equal(one[0].view(torch.int32),
                                got[i].view(torch.int32))
+
+
+@pytest.mark.parametrize("d", [32, 256, 1000, 1030, 4096])
+def test_delivery_step_kernel_batch_is_bitwise_its_single_cases(cuda, d):
+    """Each case of a B = 3 launch (A shared, and one A per case) is bit
+    for bit its own B = 1 launch and within the plain version's
+    tolerance: the walk (d <= 512) or the split (above; d = 1030 with rows
+    off 16 bytes), chosen by d alone."""
+    from repro_torch.kernels.sim_step.kernel import delivery_step
+    from repro_torch.kernels.sim_step.ref import delivery_step_plain
+    for groups in (None, 3):
+        args = _sim_inputs(cuda, 3, 16, d, True, groups, seed=d)
+        got = delivery_step(*args)
+        want = delivery_step_plain(*args)
+        torch.cuda.synchronize()
+        for gk, gp in zip(got, want):
+            torch.testing.assert_close(gk, gp, rtol=1e-5, atol=1e-4)
+        v, x, a, xs, noise, u, dfr = args
+        for i in range(3):
+            ai, xsi = (a, xs) if groups is None else (
+                a[i].contiguous(), xs[i].contiguous())
+            one = delivery_step(v[i:i + 1].contiguous(),
+                                x[i:i + 1].contiguous(), ai, xsi,
+                                noise[i:i + 1].contiguous(),
+                                u[i:i + 1].contiguous(),
+                                dfr[i:i + 1].contiguous())
+            torch.cuda.synchronize()
+            for o, g in zip(one, got):
+                assert torch.equal(o[0].view(torch.int32),
+                                   g[i].view(torch.int32))
 
 
 def test_sim_step_kernels_raise_on_what_they_do_not_take(cuda):

@@ -12,6 +12,9 @@ interpret mode, on the same numpy inputs:
   at ``rtol=1e-6, atol=1e-6`` (the row sums run in another order).
 * ``compression``: the dense operators and ``ef_compress_rows`` (top-k
   through K1's plain version, one-bit through K8's, any d).
+* K6's order of summation (``_delivery_split``, a torch mirror of the CUDA
+  kernel's walk and split: slices, warps, tiles and lanes) at the same
+  tolerance, and bit for bit between a batch of cases and each case alone.
 
 ``tests/test_torch_kernels_cuda.py`` holds the CUDA and Triton kernels
 against these plain versions on the card.
@@ -272,3 +275,153 @@ def test_sync_slice_rows(d, want):
     blocks = -(-d // SYNC_TN) * -(-d // rs)
     assert rs == 64 or blocks >= SYNC_BLOCKS
     assert rs == 512 or -(-d // SYNC_TN) * -(-d // (2 * rs)) < SYNC_BLOCKS
+
+
+@pytest.mark.parametrize("d,want", [(32, 32), (100, 100), (256, 256),
+                                    (512, 512), (1000, 64), (2048, 128),
+                                    (4096, 256), (8192, 256)])
+def test_delivery_slice_rows(d, want):
+    """``delivery_step``'s rows of A a block, from d alone: every row up
+    to d = 512 (one slice: the walk); above, a power of two in [64, 256],
+    halved until one case has ``DV_BLOCKS`` blocks of 128 columns (or 64
+    rows are reached)."""
+    from repro_torch.kernels.sim_step.kernel import (DV_BLOCKS, DV_RS_MAX,
+                                                     DV_RS_MIN, DV_TN,
+                                                     DV_WALK_D,
+                                                     delivery_slice_rows)
+    rs = delivery_slice_rows(d)
+    assert rs == want
+    if d <= DV_WALK_D:
+        return
+    blocks = -(-d // DV_TN) * -(-d // rs)
+    assert rs == DV_RS_MIN or blocks >= DV_BLOCKS
+    assert rs == DV_RS_MAX or -(-d // DV_TN) * -(-d // (2 * rs)) < DV_BLOCKS
+
+
+def _fma(s, t, c):
+    """s * t + c rounded once to f64, then to f32 (a true fused
+    multiply-add can differ from it in the last bit)."""
+    return (s.double() * t.double() + c.double()).float()
+
+
+def _delivery_split(v, x, a, xs, noise, u, dfr):
+    """K6's order of summation, in torch on (B, p, d) cases.  G: with one
+    slice (d <= 512, the walk) each entry sums every row of A in order;
+    else each slice of ``delivery_slice_rows(d)`` rows is summed by 8
+    warps, warp w taking rows w, w + 8, ... in order, the warps' sums are
+    added in warp order and the slices in slice order; then the noise.
+    P = U G in order over p.  The gap: per tile (32 columns in the walk,
+    128 in the split) each of 32 lanes sums its 1 or 4 columns in order, a
+    butterfly adds the lanes, the tiles are added in tile order."""
+    from repro_torch.kernels.sim_step.kernel import delivery_slice_rows
+    b, p, d = v.shape
+    a = a[None].expand(b, d, d) if a.ndim == 2 else \
+        a.repeat_interleave(b // a.shape[0], 0)
+    xs = xs[None].expand(b, d) if xs.ndim == 1 else \
+        xs.repeat_interleave(b // xs.shape[0], 0)
+    vd = v - xs[:, None]
+    rs = delivery_slice_rows(d)
+    walk = rs >= d
+    streams = 1 if walk else 8
+    g = None
+    for k0 in range(0, d, rs):
+        n = min(rs, d - k0)
+        part = None
+        for w in range(streams):
+            acc = torch.zeros((b, p, d))
+            for k in range(k0 + w, k0 + n, streams):
+                acc = _fma(vd[:, :, k:k + 1], a[:, k:k + 1, :], acc)
+            part = acc if part is None else part + acc
+        g = part if g is None else g + part
+    g = g + noise
+    rows = torch.zeros((b, u.shape[1], d))
+    for i in range(p):
+        rows = _fma(u[:, :, i:i + 1], g[:, i:i + 1, :], rows)
+    x_new = x - rows[:, 0]
+    v_new = v - rows[:, 1:1 + p]
+    defer_new = None
+    if dfr is not None:
+        v_new = v_new - dfr
+        defer_new = rows[:, 1 + p:]
+    df = x_new[:, None] - v_new
+    tn = 32 if walk else 128
+    ntiles = -(-d // tn)
+    sq_el = torch.zeros((b, p, ntiles * tn))
+    sq_el[..., :d] = df * df
+    lanes = sq_el.reshape(b, p, ntiles, 32, tn // 32)
+    t = lanes[..., 0]
+    for j in range(1, tn // 32):
+        t = t + lanes[..., j]
+    for o in (16, 8, 4, 2, 1):
+        t = t + t[..., torch.arange(32) ^ o]
+    tiles = t[..., 0]
+    sq = tiles[..., 0]
+    for j in range(1, ntiles):
+        sq = sq + tiles[..., j]
+    return x_new, v_new, defer_new, sq
+
+
+@pytest.mark.parametrize("defer", [False, True], ids=["plain", "defer"])
+@pytest.mark.parametrize("d", [32, 100, 512, 640])
+def test_delivery_split_matches_plain_and_reference(d, defer):
+    """The mirror of K6's order against the port's plain version, the
+    reference's oracle and (d = 32, 512) its Pallas kernel in interpret
+    mode, at the simulator's tolerance; d = 640 takes the split (128
+    columns, slices of 64 rows), the others the walk."""
+    p = 8
+    v, x, a, xs, noise, u, dfr = _step_inputs(p, d, defer, seed=d + 1)
+    got = _delivery_split(_t(v)[None], _t(x[0])[None], _t(a), _t(xs[0]),
+                          _t(noise)[None], _t(u)[None],
+                          None if dfr is None else _t(dfr)[None])
+    want = _plain_delivery(v, x, a, xs, noise, u, dfr)
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+            continue
+        np.testing.assert_allclose(g.numpy(), w.numpy(), **TOL)
+    oracles = [JR.delivery_step_ref(_j(v), _j(x), _j(a), _j(xs), _j(noise),
+                                    _j(u), _j(dfr))]
+    if d in (32, 512):
+        oracles.append(JK.delivery_step(_j(v), _j(x), _j(a), _j(xs),
+                                        _j(noise), _j(u), _j(dfr),
+                                        block_d=128, has_defer=defer,
+                                        interpret=True))
+    for want in oracles:
+        want = [np.asarray(w) for w in want]
+        np.testing.assert_allclose(got[0].numpy(), want[0], **TOL)
+        np.testing.assert_allclose(got[1][0].numpy(), want[1], **TOL)
+        if defer:
+            np.testing.assert_allclose(got[2][0].numpy(), want[2], **TOL)
+        np.testing.assert_allclose(got[3][0].numpy(),
+                                   ((want[0] - want[1]) ** 2).sum(1),
+                                   rtol=1e-5)
+
+
+@pytest.mark.parametrize("d", [256, 640], ids=["walk", "split"])
+@pytest.mark.parametrize("groups", [None, 16, 4], ids=["shared-A",
+                                                       "stacked-A", "4-A"])
+def test_delivery_split_batch_is_bitwise_its_single_cases(groups, d):
+    """B = 16 cases in one mirror run equal each case alone bit for bit:
+    the order depends on d alone (``delivery_slice_rows``), not on B or
+    the groups."""
+    b, p = 16, 16
+    v, x, a, xs, noise, u, dfr = _step_inputs(p, d, True, seed=5, b=b)
+    a, xs = a[:groups or 1], xs[:groups or 1, 0]
+    if groups is None:
+        a, xs = a[0], xs[0]
+    got = _delivery_split(_t(v), _t(x[:, 0]), _t(a), _t(xs), _t(noise),
+                          _t(u), _t(dfr))
+    per = b // (groups or b)
+    for i in (0, 7, 15):
+        ai = _t(a) if groups is None else _t(a[i // per])
+        xi = _t(xs) if groups is None else _t(xs[i // per])
+        one = _delivery_split(_t(v[i:i + 1]), _t(x[i:i + 1, 0]), ai, xi,
+                              _t(noise[i:i + 1]), _t(u[i:i + 1]),
+                              _t(dfr[i:i + 1]))
+        for o, g in zip(one, got):
+            assert torch.equal(o[0].view(torch.int32),
+                               g[i].view(torch.int32))
+    want = delivery_step_plain(_t(v), _t(x[:, 0]), _t(a), _t(xs), _t(noise),
+                               _t(u), _t(dfr))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), **TOL)
