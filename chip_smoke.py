@@ -88,10 +88,13 @@ Phases (any failure exits non-zero):
     ``topk_cr_reduce`` (K4) at the path's panels (S = 2 ``topk_ef``
     payloads, M = 1, R of ``w_gate`` and of ``wk``, k = R/16, values in
     bf16 and in f32), S = 4 messages sharing every index, and M = 24, R =
-    257, k = 1 with a zero weight and an ``inf`` under a zero weight;
+    257, k = 1 with a zero weight and an ``inf`` under a zero weight; on
+    its segment route (payloads in K1's order) and, with message 1's
+    picks shuffled, its atomic route, the route read back and logged;
     ``onebit_cr_reduce`` (K5) at the same panels with one-bit payloads;
     each case twice (bitwise, and bitwise against the plain version), and
-    timed beside its bound (K4 also beside ``index_put_``);
+    timed beside its bound (K4 also beside ``index_put_``, and on its
+    atomic route);
 21. qwen3-1.7b-smoke with 2 workers, 2 steps of each of ``--sync
     topk_ef``, ``onebit_ef`` and ``elastic`` on the card against the same
     code on the CPU: the sync/update half fed the same gradients, and the
@@ -103,7 +106,8 @@ Phases (any failure exits non-zero):
     (26 ``onebit_cr_reduce``) and 2 of ``--sync elastic``; launch counters
     zeroed just before each run and read just after;
 23. one ``topk_ef`` sync step under ``torch.profiler`` (at most 5 device
-    kernels a ``topk_ef`` call).
+    kernels a ``topk_ef`` call; K4's kernels a call logged, as K2's in
+    phase 6).
 
 The last three lines of standard output are the kernels' JSON record, the
 card's name and power limit, and the result ``{"ok": true, "device":
@@ -121,13 +125,14 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory (data sheet)
 FP32_FLOPS_PER_S = 67e12            # H100 SXM FP32 outside the tensor cores
 TOPK_RATIO = 1 / 16
-# K1's, K6's, K7's, K9's and K10's times before their redesign, recorded by
-# this script on an H100 80GB HBM3 at 700.00 W (PERF.md's kernel table; K1
-# a CUDA-event time over 5 calls, the others one device_ms reading each):
+# K1's, K4's, K6's, K7's, K9's and K10's times before their redesign,
+# recorded by this script on an H100 80GB HBM3 at 700.00 W (PERF.md's
+# kernel table; K1 and K4 CUDA-event times over 5 calls, the others one
+# device_ms reading each):
 # logged as recorded, never measured here nor put in the kernels' JSON line
 EARLIER_MS = {"topk_ef": 5.733, "delivery_step": 0.2004,
               "swa_decode_attention": 0.1454, "sync_step": 0.0581,
-              "ssd_chunked": 8.970}
+              "ssd_chunked": 8.970, "topk_cr_reduce": 1.918}
 # the hybrid path before K10's redesign, recorded by this script in the same
 # way (its last run before the redesign): phase 18's batch-4 prefill (s) and
 # phase 19's batch-1 prefill, its wall with the profiler on and K10's device
@@ -362,6 +367,8 @@ def check_deposits(torch, dev, gen, records):
             (topk_cr_deposit, topk_cr_deposit_plain, (vals, idx)),
             (onebit_cr_deposit, onebit_cr_deposit_plain, (pos, means))):
         a_p = plain(acc.clone(), *args, slots, w)
+        # K2 keeps one route, the atomic scatter a message (a row-segment
+        # redesign was tried and not kept: PERF.md)
         for rep in range(3):        # a race would show only now and then
             a_k = kern(acc.clone(), *args, slots, w)
             torch.cuda.synchronize()
@@ -391,16 +398,23 @@ def check_deposits(torch, dev, gen, records):
                                                      accumulate=True))
     targets = int(torch.unique(flat).numel())
     nbytes = 2 * 1 * k * 8 + targets * 8
+    # the card reads and writes 32-byte sectors: each sector of a slot
+    # that takes a pick is read and written once, beside the payload
+    sectors = int(torch.unique(flat // 8).numel())
+    sector_bytes = 2 * 1 * k * 8 + sectors * 32 * 2
     records[topk_cr_deposit.name] = dict(
         name=topk_cr_deposit.name, route="cuda",
         source=topk_cr_deposit.source, replaces=topk_cr_deposit.replaces,
         max_abs_err=errs[topk_cr_deposit.name], ms=ms, plain_ms=plain,
         bound_ms=bound_ms(nbytes), bound_by="bytes", library_ms=lib,
-        shape=[3, 1, r], k=k, messages=2)
+        sector_bound_ms=bound_ms(sector_bytes), shape=[3, 1, r], k=k,
+        messages=2)
     log(f"time topk_cr_deposit (3, 1, {r}) S=2 k={k} (topk_ef payloads): "
         f"kernel {ms:.3f} ms, plain {plain:.3f} ms, "
         f"index_put_(accumulate=True) {lib:.3f} ms (products precomputed), "
-        f"bound {bound_ms(nbytes):.3f} ms ({nbytes} bytes)")
+        f"bound {bound_ms(nbytes):.3f} ms ({nbytes} bytes), sector bound "
+        f"{bound_ms(sector_bytes):.3f} ms ({sectors} sectors of 32 bytes "
+        f"read and written, {sectors / (2 * r / 8):.4f} of the two slots)")
     del flat, prods
     ms = time_ms(torch, lambda: onebit_cr_deposit(acc, pos, means, slots, w),
                  warmup=2, iters=5)
@@ -587,10 +601,20 @@ def profile_step(torch, title: str = "profile step", sync=None) -> None:
         log(f"  group {group:<24s} {us / 1e3:9.3f} ms  x{count}")
     for key, us, count in sorted(rows, key=lambda r: -r[1])[:12]:
         log(f"  {us / 1e3:9.3f} ms  x{count:<5d} {key[:100]}")
-    # K1 compresses each of the 13 leaves for each of the 2 workers
+    # K1 compresses each of the 13 leaves for each of the 2 workers; K2 or
+    # K4 takes each leaf's 2 messages in one call
     k1 = groups.get("K1 topk_ef", (0.0, 0))[1]
     log(f"  K1 device kernels a call: {k1 / 26:.2f} ({k1} in 26 calls)")
     require(0 < k1 <= 5 * 26, f"K1 launched {k1} kernels in 26 calls")
+    name = "K2 topk_cr_deposit" if sync is None else "K4 topk_cr_reduce"
+    us, count = groups.get(name, (0.0, 0))
+    log(f"  {name}: {us / 1e3:.3f} ms in {count} device kernels, "
+        f"{count / 13:.2f} a call (13 calls)")
+    pats = dict(PROFILE_GROUPS)[name]
+    for key, kus, kcount in rows:
+        if any(p in key for p in pats):
+            log(f"    {kus / 1e3:9.3f} ms  x{kcount:<4d} {key[:90]}")
+    require(count > 0, f"{name} ran no device kernel")
 
 
 # ---------------------------------------------------------------------------
@@ -1863,29 +1887,44 @@ def check_reduces(torch, dev, gen, records):
     from repro_torch.kernels.cr_reduce.ref import (onebit_cr_reduce_plain,
                                                    topk_cr_reduce_plain)
     worst = {topk_cr_reduce.name: 0.0, onebit_cr_reduce.name: 0.0}
-    # (S, M, R, k, weights, shared indices, inf under a zero weight)
-    cases = [(2, 1, R_WGATE, None, [1.0, 1.0], False, False),
-             (2, 1, R_WK, None, [1.0, 1.0], False, False),
-             (4, 1, R_WK, None, [1.0, 0.5, 0.25, 2.0], True, False),
-             (3, 24, 257, 1, [1.0, 0.0, 0.0], False, True)]
-    for s, m, r, k, weights, shared, poison in cases:
+    # (S, M, R, k, weights, shared indices, inf under a zero weight,
+    # message 1's picks shuffled: a payload off K1's order, which sends the
+    # whole call to K4's atomic route)
+    cases = [(2, 1, R_WGATE, None, [1.0, 1.0], False, False, False),
+             (2, 1, R_WGATE, None, [1.0, 1.0], False, False, True),
+             (2, 1, R_WK, None, [1.0, 1.0], False, False, False),
+             (4, 1, R_WK, None, [1.0, 0.5, 0.25, 2.0], True, False, False),
+             (4, 1, R_WK, None, [1.0, 0.5, 0.25, 2.0], True, False, True),
+             (3, 24, 257, 1, [1.0, 0.0, 0.0], False, True, False),
+             (3, 24, 257, 16, [1.0, 0.0, 0.5], False, True, True)]
+    for s, m, r, k, weights, shared, poison, shuffled in cases:
         k = k or int(round(r * TOPK_RATIO))
         vals, idx, pos, means = reduce_panel(torch, dev, gen, s, m, r, k,
                                              shared)
         if poison:
             vals[2, 5, 0] = float("inf")
             means[2, 5, 0] = float("inf")
+        if shuffled:
+            order = torch.randperm(k, generator=gen, device=dev)
+            idx[1] = idx[1][:, order]
+            vals[1] = vals[1][:, order]
         w = torch.tensor(weights, dtype=torch.float32, device=dev)
         for dtype in ("bfloat16", "float32"):
             v = vals.to(getattr(torch, dtype))
             args = (v, idx, w, r)
-            runs = (topk_cr_reduce(*args), topk_cr_reduce(*args),
+            first = topk_cr_reduce(*args)
+            route = topk_cr_reduce.last_route()
+            runs = (first, topk_cr_reduce(*args),
                     topk_cr_reduce_plain(*args))
             tag = (f"(S, M, R) = ({s}, {m}, {r}) k={k} vals {dtype} w "
                    f"{weights}{' shared indices' if shared else ''}"
-                   f"{' inf under w=0' if poison else ''}")
+                   f"{' inf under w=0' if poison else ''}"
+                   f"{' message 1 shuffled' if shuffled else ''}, "
+                   f"{route} route")
             _check_reduce(torch, topk_cr_reduce.name, tag, runs, worst)
-        del v, runs
+            require(route == ("atomic" if shuffled else "segment"),
+                    f"{topk_cr_reduce.name} {tag}: unexpected route")
+        del v, runs, first
         args = (pos, means, w)
         runs = (onebit_cr_reduce(*args), onebit_cr_reduce(*args),
                 onebit_cr_reduce_plain(*args))
@@ -1905,6 +1944,16 @@ def check_reduces(torch, dev, gen, records):
     w = torch.ones((2,), dtype=torch.float32, device=dev)
     ms = time_ms(torch, lambda: topk_cr_reduce(vals, idx, w, r), warmup=2,
                  iters=5)
+    require(topk_cr_reduce.last_route() == "segment",
+            "topk_cr_reduce: the path's payloads took the atomic route")
+    # the same picks, message 1's shuffled: the atomic route, timed alike
+    order = torch.randperm(k, generator=gen, device=dev)
+    shuffled = torch.stack([idx[0], idx[1][:, order]])
+    ms_atomic = time_ms(torch, lambda: topk_cr_reduce(vals, shuffled, w, r),
+                        warmup=2, iters=5)
+    require(topk_cr_reduce.last_route() == "atomic",
+            "topk_cr_reduce: a shuffled payload took the segment route")
+    del shuffled, order
     plain = time_ms(torch, lambda: topk_cr_reduce_plain(vals, idx, w, r))
     flat = idx.long().reshape(-1)
     prods = (vals.float() * w[:, None, None]).reshape(-1)
@@ -1918,12 +1967,13 @@ def check_reduces(torch, dev, gen, records):
         replaces=topk_cr_reduce.replaces,
         max_abs_err=worst[topk_cr_reduce.name], ms=ms, plain_ms=plain,
         bound_ms=bound_ms(nbytes), bound_by="bytes", library_ms=lib,
-        shape=[2, 1, r], k=k, vals="bfloat16")
+        shape=[2, 1, r], k=k, vals="bfloat16", atomic_route_ms=ms_atomic)
     log(f"time topk_cr_reduce (2, 1, {r}) k={k} bf16 vals (topk_ef "
-        f"payloads): kernel {ms:.4f} ms, plain {plain:.4f} ms, zero_ + "
-        f"index_put_(accumulate=True) {lib:.4f} ms (flat indices and "
-        f"products precomputed), bound {bound_ms(nbytes):.4f} ms ({nbytes} "
-        f"bytes)")
+        f"payloads): kernel {ms:.4f} ms (segment route; the atomic route "
+        f"{ms_atomic:.4f} ms with message 1's picks shuffled), plain "
+        f"{plain:.4f} ms, zero_ + index_put_(accumulate=True) {lib:.4f} ms "
+        f"(flat indices and products precomputed), bound "
+        f"{bound_ms(nbytes):.4f} ms ({nbytes} bytes)")
     ms = time_ms(torch, lambda: onebit_cr_reduce(pos, means, w), warmup=2,
                  iters=5)
     plain = time_ms(torch, lambda: onebit_cr_reduce_plain(pos, means, w))
@@ -2201,7 +2251,9 @@ def main() -> int:
         "redesign (one device_ms reading each, H100 80GB HBM3 at 700.00 W, "
         "PERF.md) " + ", ".join(f"{name} {ms} ms"
                                 for name, ms in EARLIER_MS.items()))
-    line = [{k: records[kern.name][k] for k in keys}
+    line = [{k: records[kern.name][k] for k in keys
+             + (("sector_bound_ms",) if kern.name == "topk_cr_deposit"
+                else ())}
             for kern in all_kernels()]
     print(json.dumps({"kernels": line}), flush=True)
     print(smi_line(), flush=True)

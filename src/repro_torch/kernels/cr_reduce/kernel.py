@@ -2,7 +2,10 @@
 K3).
 
 * ``topk_cr_reduce`` (K4) — CUDA C++ (``csrc/topk_cr_reduce.cu``), bound
-  with ``ctypes``: zero fill, then one atomic scatter launch per message.
+  with ``ctypes``: a run pass over the indices, then one block per row
+  segment adds every message's picks there in shared memory and writes the
+  segment once (the segment route, for payloads in K1's order); a payload
+  in another order takes the atomic route, chosen on the device.
 * ``onebit_cr_reduce`` (K5) — Triton, defined below.
 * ``topk_cr_deposit`` (K2) — CUDA C++ (``csrc/topk_cr_deposit.cu``).
 * ``onebit_cr_deposit`` (K3) — Triton, defined below.
@@ -113,7 +116,9 @@ class TopkCrReduce:
     which makes the result bitwise the plain version's.  With duplicates
     inside one message the sum is still right, but the order of its adds,
     and so its rounding, is not fixed.  With S = 0 or k = 0 the output is
-    the zero fill alone."""
+    the zero fill alone.  Each call allocates its scratch (the route flag,
+    the runs and the segment crossings: about 8 bytes a payload row per
+    8,192 entries of R); :meth:`last_route` reads the last call's route."""
 
     name = "topk_cr_reduce"
     source = "src/repro_torch/kernels/cr_reduce/csrc/topk_cr_reduce.cu"
@@ -121,6 +126,7 @@ class TopkCrReduce:
 
     def __init__(self):
         self.launches = 0
+        self._scratch = None
 
     def __call__(self, vals, idx, weights, r: int):
         name = self.name
@@ -143,19 +149,30 @@ class TopkCrReduce:
         lib = _build.load("topk_cr_reduce")
         if not getattr(lib, "_typed", False):
             lib.topk_cr_reduce_launch.argtypes = [_VP, _VP, ctypes.c_int,
-                                                  _VP, _VP] + [_LL] * 4 \
+                                                  _VP, _VP, _VP] + [_LL] * 4 \
                 + [_VP]
             lib.topk_cr_reduce_launch.restype = ctypes.c_int
+            lib.topk_cr_reduce_scratch_words.argtypes = [_LL] * 3
+            lib.topk_cr_reduce_scratch_words.restype = _LL
             lib._typed = True
+        scratch = torch.empty(lib.topk_cr_reduce_scratch_words(s, m, r),
+                              dtype=torch.int32, device=vals.device)
         with torch.cuda.device(vals.device):
             stream = torch.cuda.current_stream(vals.device).cuda_stream
             rc = lib.topk_cr_reduce_launch(
                 out.data_ptr(), vals.data_ptr(),
                 int(vals.dtype == torch.bfloat16), idx.data_ptr(),
-                weights.data_ptr(), s, m, r, k, stream)
+                weights.data_ptr(), scratch.data_ptr(), s, m, r, k, stream)
         _build.check(rc, name)
+        self._scratch = scratch
         self.launches += 1
         return out
+
+    def last_route(self) -> str:
+        """``"segment"`` or ``"atomic"``: the route the last call took,
+        read back from its scratch (a host sync: for checks, never on the
+        path)."""
+        return "atomic" if int(self._scratch[0]) else "segment"
 
 
 # triton.language, bound at the first launch (the kernel body below names

@@ -166,6 +166,51 @@ def test_deposit_kernels_match_plain_bitwise(cuda, m, r, k):
     assert torch.equal(a_k.view(torch.int32), a_p.view(torch.int32))
 
 
+def _k1_payloads(cuda, s, m, r, k, ties, seed):
+    """S messages as the paths make them: ``topk_ef``'s picks of seeded
+    rows, in K1's documented order (at most two ascending runs a row)."""
+    vals, idx = [], []
+    for i in range(s):
+        g, _ = _rows((m, r), seed=seed + i, ties=ties)
+        v, j, _ = topk_ef(torch.from_numpy(g).to(cuda), None, k)
+        vals.append(v)
+        idx.append(j)
+    return torch.stack(vals), torch.stack(idx)
+
+
+def _permuted(cuda, m, r, k, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(np.stack([rng.permutation(r)[:k]
+                                      for _ in range(m)]).astype(
+        np.int32)).to(cuda)
+
+
+# (M, R, k, ties): the path's shape cut down, rows off 16 bytes, a row of
+# one pick, ties (a long second run after the picks above the threshold)
+K1_PAYLOADS = [(1, 1 << 20, 1 << 16, False), (8, 1001, 50, True),
+               (24, 257, 16, False), (2, 70000, 4375, True), (3, 3, 1, True)]
+
+
+@pytest.mark.parametrize("m,r,k,ties", K1_PAYLOADS)
+@pytest.mark.parametrize("mixed", [False, True])
+def test_topk_deposit_k1_payloads_bitwise(cuda, m, r, k, ties, mixed):
+    """Payloads as the path makes them (mixed: the last message permuted);
+    two messages share a slot; bitwise the plain version, twice in a
+    row."""
+    vals, idx = _k1_payloads(cuda, 3, m, r, k, ties, seed=r)
+    if mixed:
+        idx[2] = _permuted(cuda, m, r, k, seed=r)
+    acc = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (3, m, r)).astype(np.float32)).to(cuda)
+    slots = torch.tensor([1, 1, 2], dtype=torch.int32, device=cuda)
+    w = torch.tensor([1.0, 0.5, 0.25], device=cuda)
+    want = topk_cr_deposit_plain(acc.clone(), vals, idx, slots, w)
+    for _ in range(2):
+        got = topk_cr_deposit(acc.clone(), vals, idx, slots, w)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 def test_kernels_count_launches(cuda):
     acc, vals, idx, pos, means, slots, w = _deposit_inputs(cuda, 1, 64, 4)
     before = (topk_ef.launches, topk_cr_deposit.launches,
@@ -227,6 +272,54 @@ def test_reduce_kernels_match_plain_bitwise(cuda, s, m, r, k, shared, dtype):
     want = onebit_cr_reduce_plain(pos, means, w)
     torch.cuda.synchronize()
     assert _bits_equal(got, want) and _bits_equal(got, again)
+
+
+@pytest.mark.parametrize("m,r,k,ties", K1_PAYLOADS)
+@pytest.mark.parametrize("mixed", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_topk_reduce_k1_payloads_bitwise(cuda, m, r, k, ties, mixed, dtype):
+    """As the deposit's case: the segment route for K1-ordered payloads,
+    the atomic route when one message is permuted; a zero weight; bitwise
+    the plain version, twice in a row."""
+    from repro_torch.kernels.cr_reduce.kernel import topk_cr_reduce
+    from repro_torch.kernels.cr_reduce.ref import topk_cr_reduce_plain
+    vals, idx = _k1_payloads(cuda, 3, m, r, k, ties, seed=r + 1)
+    if mixed:
+        idx[1] = _permuted(cuda, m, r, k, seed=r)
+    vals = vals.to(getattr(torch, dtype))
+    w = torch.tensor([1.0, 0.0, 0.5], device=cuda)
+    want = topk_cr_reduce_plain(vals, idx, w, r)
+    for _ in range(2):
+        got = topk_cr_reduce(vals, idx, w, r)
+        torch.cuda.synchronize()
+        assert topk_cr_reduce.last_route() == ("atomic" if mixed and k > 1
+                                               else "segment")
+        assert _bits_equal(got, want)
+
+
+def test_topk_reduce_sparse_second_run(cuda):
+    """A second run of a few picks far apart (ties spread over the row):
+    each gap crosses hundreds of segment boundaries, which a warp writes
+    out together; bitwise the plain version, on the segment route."""
+    from repro_torch.kernels.cr_reduce.kernel import topk_cr_reduce
+    from repro_torch.kernels.cr_reduce.ref import topk_cr_reduce_plain
+    rng = np.random.default_rng(3)
+    r = 1 << 23
+    rows = []
+    for _ in range(2):
+        ties = np.sort(rng.choice(r, size=6, replace=False))
+        rest = np.setdiff1d(rng.choice(r, size=40000, replace=False), ties)
+        rows.append(np.concatenate([np.sort(rest)[:39990], ties]))
+    idx = torch.from_numpy(np.stack(rows)[:, None].astype(np.int32)).to(cuda)
+    vals = torch.from_numpy(rng.standard_normal(idx.shape).astype(
+        np.float32)).to(cuda)
+    w = torch.tensor([1.0, 0.5], device=cuda)
+    want = topk_cr_reduce_plain(vals, idx, w, r)
+    for _ in range(2):
+        got = topk_cr_reduce(vals, idx, w, r)
+        torch.cuda.synchronize()
+        assert topk_cr_reduce.last_route() == "segment"
+        assert _bits_equal(got, want)
 
 
 def test_reduce_kernels_zero_weight_inf_and_empty(cuda):
