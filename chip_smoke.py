@@ -11,7 +11,9 @@ Phases (any failure exits non-zero):
    version at the main path's shapes, timed with CUDA events beside its
    byte bound and the nearest single PyTorch call; ``topk_ef`` (K1) also
    at the small leaves (R = 2,048, 3,584, 57,344; the first and last
-   timed), rows off 16 bytes (R = 257, M = 8), and two rows whose threshold
+   timed beside ``torch.topk`` and the launch floor, the device time of a
+   one-element in-place ``add_``), rows off 16 bytes (R = 257, M = 8), and
+   two rows whose threshold
    bin overflows the candidate list (an all-zero row with -0.0, and ties),
    its picks bitwise in the documented order and bitwise run to run;
 3. a small-input check of the path on the card against the same code on
@@ -28,10 +30,13 @@ Phases (any failure exits non-zero):
 7. the simulator's kernels against their plain versions: ``delivery_step``
    (both bodies) and ``sync_step`` at (p, d) = (8, 32), (16, 512),
    (32, 4096), d = 100 and B = 16 cases at (16, 256) with A shared and
-   stacked; ``onebit_ef`` at the matching (rows, d); ``topk_ef`` at the
-   simulator's (8, 32), k = 8, with ties, its picks in the documented
-   order; each run twice (bitwise) and
-   timed beside its bound, ``sync_step`` at B = 1 in turns with
+   stacked; ``onebit_ef`` (K8) at the matching (rows, d), (256, 256), its
+   routes' edges (R = 2,048 and 2,049 on 8 rows, a cluster's 131,072
+   entries and one more) and a row of 2^20 entries, with -0.0 entries
+   and an all-zero row, its route logged, and in place on each route;
+   ``topk_ef`` at the simulator's (8, 32), k = 8, with ties, its picks in
+   the documented order; each run twice (bitwise) and timed beside its
+   bound and the launch floor, ``sync_step`` at B = 1 in turns with
    ``torch.addmm``;
 8. Table 1 (``bench_table1_bounds.py``'s nine relaxations and shared
    memory, P = 8, d = 32, T = 600) on the card and on the CPU with the same
@@ -125,14 +130,15 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory (data sheet)
 FP32_FLOPS_PER_S = 67e12            # H100 SXM FP32 outside the tensor cores
 TOPK_RATIO = 1 / 16
-# K1's, K4's, K6's, K7's, K9's and K10's times before their redesign,
+# K1's, K4's, K6's, K7's, K8's, K9's and K10's times before their redesign,
 # recorded by this script on an H100 80GB HBM3 at 700.00 W (PERF.md's
 # kernel table; K1 and K4 CUDA-event times over 5 calls, the others one
 # device_ms reading each):
 # logged as recorded, never measured here nor put in the kernels' JSON line
 EARLIER_MS = {"topk_ef": 5.733, "delivery_step": 0.2004,
               "swa_decode_attention": 0.1454, "sync_step": 0.0581,
-              "ssd_chunked": 8.970, "topk_cr_reduce": 1.918}
+              "ssd_chunked": 8.970, "topk_cr_reduce": 1.918,
+              "onebit_ef": 0.0042}
 # the hybrid path before K10's redesign, recorded by this script in the same
 # way (its last run before the redesign): phase 18's batch-4 prefill (s) and
 # phase 19's batch-1 prefill, its wall with the profiler on and K10's device
@@ -223,6 +229,13 @@ def paired_ms(torch, kernel, library, rounds: int = 5):
     return min(ks), min(ls), note
 
 
+def launch_floor_ms(torch, dev) -> float:
+    """``device_ms`` of a one-element in-place ``add_`` on the card: what a
+    launch that does almost nothing takes between its neighbours."""
+    x = torch.zeros(1, device=dev)
+    return device_ms(torch, lambda: x.add_(1))[0]
+
+
 def bound_ms(n_bytes: float) -> float:
     return n_bytes / HBM_BYTES_PER_S * 1e3
 
@@ -305,10 +318,14 @@ def check_topk_ef(torch, dev, gen, records):
         if r in (2048, 57344):
             ms, call = device_ms(torch, lambda: topk_ef(g, e, k))
             plain, pcall = device_ms(torch, lambda: topk_ef_plain(g, e, k))
+            absw = (e + g).abs()
+            lib, _ = device_ms(torch, lambda: torch.topk(absw, k, dim=1))
             log(f"time topk_ef ({m}, {r}) k={k}: kernel {ms:.4f} ms on the "
                 f"device ({call:.4f} ms a call from the host), plain "
-                f"{plain:.4f} ms ({pcall:.4f}), bound "
+                f"{plain:.4f} ms ({pcall:.4f}), torch.topk {lib:.4f} ms, "
+                f"launch floor {launch_floor_ms(torch, dev):.4f} ms, bound "
                 f"{bound_ms(12 * m * r + 8 * m * k):.6f} ms")
+            del absw
         if r == R_WGATE:
             absw = (e + g).abs()
             ms = time_ms(torch, lambda: topk_ef(g, e, k), warmup=2, iters=5)
@@ -684,6 +701,8 @@ def check_sim_step(torch, dev, gen, records):
     from repro_torch.kernels.sim_step.ref import (delivery_step_plain,
                                                   sync_step_plain)
     worst = {delivery_step.name: 0.0, sync_step.name: 0.0}
+    floor = launch_floor_ms(torch, dev)
+    log(f"launch floor {floor:.4f} ms (a one-element add_ on the device)")
     for b, p, d, groups in SIM_SHAPES:
         timed = (b, p, d, groups) == TIMED_SIM_SHAPE
         for defer in (False, True):
@@ -707,7 +726,8 @@ def check_sim_step(torch, dev, gen, records):
             log(f"time delivery_step {tag}: kernel {ms:.4f} ms on the "
                 f"device ({call:.4f} ms a call from the host), plain "
                 f"{plain:.4f} ms ({pcall:.4f}), bound {bnd:.4f} ms ({by}; "
-                f"{nbytes} bytes, {flops:.4g} flops); library call: none")
+                f"{nbytes} bytes, {flops:.4g} flops), launch floor "
+                f"{floor:.4f} ms; library call: none")
             if timed and not defer:
                 records[delivery_step.name] = dict(
                     name=delivery_step.name, route="cuda",
@@ -751,7 +771,8 @@ def check_sim_step(torch, dev, gen, records):
             f"({call:.4f} ms a call from the host), plain {plain:.4f} ms "
             f"({pcall:.4f}), torch.addmm "
             f"{'none (batched)' if lib is None else f'{lib:.4f} ms'}, bound "
-            f"{bnd:.4f} ms ({by}; {nbytes} bytes){verdict}")
+            f"{bnd:.4f} ms ({by}; {nbytes} bytes), launch floor "
+            f"{floor:.4f} ms{verdict}")
         if timed:
             records[sync_step.name] = dict(
                 name=sync_step.name, route="cuda", source=sync_step.source,
@@ -763,14 +784,26 @@ def check_sim_step(torch, dev, gen, records):
         records[name]["max_abs_err"] = err
 
 
+# (M = B * p worker rows, R = d) as the simulator's EF rounds give them,
+# then K8's route edges: the warp rows' longest row and the first cluster
+# row, a cluster's register capacity and one entry more (two passes), and a
+# row of 2^20 entries (eight passes)
+ONEBIT_SHAPES = ((8, 32), (16, 512), (32, 4096), (8, 100), (256, 256),
+                 (8, 2048), (8, 2049), (1, 131072), (1, 131073), (1, 1 << 20))
+
+
 def check_onebit_ef(torch, dev, gen, records):
-    from repro_torch.kernels.onebit_ef.kernel import onebit_ef
+    from repro_torch.kernels.onebit_ef.kernel import onebit_ef, plan
     from repro_torch.kernels.onebit_ef.ref import onebit_ef_plain
     worst = 0.0
-    # (M = B * p worker rows, R = d), as the simulator's EF rounds give them
-    for m, r in ((8, 32), (16, 512), (32, 4096), (8, 100), (256, 256)):
+    floor = launch_floor_ms(torch, dev)
+    in_place = set()
+    for m, r in ONEBIT_SHAPES:
         g = torch.randn((m, r), generator=gen, device=dev)
         e = 0.1 * torch.randn((m, r), generator=gen, device=dev)
+        if m >= 2:
+            g[0, ::3] = -0.0            # -0.0 entries: the + class
+            e[0, ::3] = -0.0
         g[-1] = 0.0
         e[-1] = 0.0                     # an all-zero row
         got = onebit_ef(g, e)
@@ -780,23 +813,39 @@ def check_onebit_ef(torch, dev, gen, records):
         err, close, same = compare(torch, got, want, again, ONEBIT_TOL)
         packed_same = torch.equal(got[0], want[0])
         worst = max(worst, err)
-        log(f"check onebit_ef ({m}, {r}): packed bitwise {packed_same}, "
+        route, cluster, threads, units, passes = plan(m, r)
+        tag = (f"({m}, {r}) {route} route (cluster {cluster}, {threads} "
+               f"threads, {units} units, {passes} passes)")
+        log(f"check onebit_ef {tag}: packed bitwise {packed_same}, "
             f"means/new_err close {close}, run-to-run bitwise {same}, "
             f"max_abs_err {err}")
         require(packed_same and close and same, "onebit_ef != plain version")
+        kind = (route, cluster > 1, passes > 1)
+        if kind not in in_place:        # out_err = err, once a route
+            in_place.add(kind)
+            e2 = e.clone()
+            got2 = onebit_ef(g, e2, out_err=e2)
+            torch.cuda.synchronize()
+            bitwise = all(torch.equal(x, y) for x, y in zip(got2, got))
+            log(f"check onebit_ef {tag} in place: bitwise the out-of-place "
+                f"call {bitwise}")
+            require(bitwise and got2[2].data_ptr() == e2.data_ptr(),
+                    "onebit_ef in place != out of place")
+            del e2, got2
         nbytes = 12 * m * r + m * ((r + 7) // 8) + 8 * m
         bnd, by = bound_of(nbytes, 6.0 * m * r)
         ms, call = device_ms(torch, lambda: onebit_ef(g, e))
         plain, pcall = device_ms(torch, lambda: onebit_ef_plain(g, e))
         log(f"time onebit_ef ({m}, {r}): kernel {ms:.4f} ms on the device "
             f"({call:.4f} ms a call from the host), plain {plain:.4f} ms "
-            f"({pcall:.4f}), bound {bnd:.6f} ms ({by}; {nbytes} bytes); "
-            f"library call: none")
+            f"({pcall:.4f}), bound {bnd:.6f} ms ({by}; {nbytes} bytes), "
+            f"launch floor {floor:.4f} ms; library call: none")
         if (m, r) == (32, 4096):
             records[onebit_ef.name] = dict(
-                name=onebit_ef.name, route="triton", source=onebit_ef.source,
+                name=onebit_ef.name, route="cuda", source=onebit_ef.source,
                 replaces=onebit_ef.replaces, ms=ms, plain_ms=plain,
                 bound_ms=bnd, bound_by=by, library_ms=None, shape=[m, r])
+        del g, e, got, want, again
     records[onebit_ef.name]["max_abs_err"] = worst
 
 
@@ -824,7 +873,8 @@ def check_topk_ef_sim_shape(torch, dev, gen):
     lib, _ = device_ms(torch, lambda: torch.topk(absw, k, dim=1))
     log(f"time topk_ef sim shape ({m}, {r}) k={k}: kernel {ms:.4f} ms on "
         f"the device ({call:.4f} ms a call from the host), plain "
-        f"{plain:.4f} ms ({pcall:.4f}), torch.topk {lib:.4f} ms, bound "
+        f"{plain:.4f} ms ({pcall:.4f}), torch.topk {lib:.4f} ms, launch "
+        f"floor {launch_floor_ms(torch, dev):.4f} ms, bound "
         f"{bound_ms(nbytes):.6f} ms ({nbytes} bytes)")
 
 

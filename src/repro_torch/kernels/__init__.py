@@ -1,7 +1,7 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch
 version: ``topk_ef`` (K1, CUDA C++), the ``cr_reduce`` reduces (K4 CUDA
 C++, K5 Triton) and deposits (K2 CUDA C++, K3 Triton), ``sim_step`` (K6 ``delivery_step`` and K7 ``sync_step``,
-CUDA C++), ``onebit_ef`` (K8, Triton), ``swa_attention`` (K9
+CUDA C++), ``onebit_ef`` (K8, CUDA C++), ``swa_attention`` (K9
 ``swa_decode_attention``, CUDA C++) and ``ssd`` (K10 ``ssd_chunked``, CUDA
 C++).  :func:`main_path_kernels` lists the bounded-staleness training path's
 wrappers, :func:`sync_kernels` the synchronous compressed sync's,

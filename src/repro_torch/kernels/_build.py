@@ -35,6 +35,7 @@ SOURCES = {
     "sim_step": KERNELS_DIR / "sim_step" / "csrc" / "sim_step.cu",
     "swa_decode": KERNELS_DIR / "swa_attention" / "csrc" / "swa_decode.cu",
     "ssd_chunked": KERNELS_DIR / "ssd" / "csrc" / "ssd_chunked.cu",
+    "onebit_ef": KERNELS_DIR / "onebit_ef" / "csrc" / "onebit_ef.cu",
 }
 
 _LOCK = threading.Lock()

@@ -1,4 +1,4 @@
-"""Launcher of the Triton onebit_ef kernel (K8).
+"""Launcher of the CUDA onebit_ef kernel (K8, ``csrc/onebit_ef.cu``).
 
 Replaces ``src/repro/kernels/onebit_ef/kernel.py::onebit_ef`` (Pallas TPU).
 Computes, per row of ``w = err + g`` (M, R): the sign classes ``w >= 0``,
@@ -7,86 +7,99 @@ into ``ceil(R / 8)`` bytes (pad bits zero) and the residual ``w - Q(w)``.
 Any M and any R: the reference's ``R % 8 == 0`` requirement does not
 carry over.
 
-What bounds it: device-memory bytes.  It reads g and err and writes the
-residual (12 bytes per entry) plus R/8 bytes of signs; the arithmetic is a
-few operations per entry.  At the simulator's sizes (M = p <= 32, R = d <=
-512) one launch does far less than a microsecond of work, so the launch
-itself bounds it.
-
-Design: one program per row, looping over the row in chunks of
-``8 * BYTES`` entries laid out as a (BYTES, 8) tile, so that each tile row
-is one output byte: pass 1 accumulates the masked sums and the count in
-per-lane partials, reduced in one fixed order at the end (deterministic,
-no atomics); pass 2 reloads the chunk, writes the residual and packs each
-tile row's 8 signs into its byte.  Launched with ``enable_fp_fusion=False``
-so that ``w - q`` is rounded as in the plain version.
+What bounds it: device-memory bytes, 12 an entry and one per 8 entries of
+signs.  At the simulator's sizes one launch moves under half a
+microsecond of bytes, so the launch and its dependent memory round trips
+bound it, and the kernel reads each row once (the source says how).
+:func:`plan` picks the route from the shape alone: a warp a row up to
+``WARP_ROW_MAX`` entries, else a thread-block cluster a row (a plain
+block where one CTA a row fills the card better).
 
 The wrapper checks device, dtype, shape and contiguity, allocates the
-outputs, launches on the current stream and counts its launches in
-``onebit_ef.launches``.  ``triton`` is imported inside the launching
-function, so this module imports on machines without it.
+outputs, launches on the current stream, raises on a non-zero launch error
+and counts its launches in ``onebit_ef.launches``.  The library is built
+at first use (``kernels/_build.py``).
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
-# triton.language, bound at the first launch (the kernel body names it as a
-# module global, as Triton resolves names in the function's globals)
-tl = None
-_KERNEL = None
+from repro_torch.kernels import _build
+
+_VP, _LL = ctypes.c_void_p, ctypes.c_longlong
+# the layout constants of csrc/onebit_ef.cu, checked against the library
+WARP_ROW_MAX = 2048       # entries: a row up to here takes one warp
+ROWS_PER_BLOCK_MAX = 8    # warp rows: rows (warps) a block, at most
+CLUSTER_THREADS_MIN = 64  # cluster rows: threads a CTA, at least
+CLUSTER_THREADS_MAX = 256  # and at most
+CLUSTER_UNITS_MAX = 8     # units of 8 entries a thread holds a pass
+CLUSTER_MAX = 8           # CTAs a cluster, the portable limit
+SMS = 132                 # the H100's SMs
+CLUSTER_CAPACITY = (CLUSTER_MAX * CLUSTER_THREADS_MAX * CLUSTER_UNITS_MAX
+                    * 8)
+"""Entries a cluster holds in registers; a longer row loops over passes."""
 
 
-def _onebit_ef_body(g_ptr, e_ptr, packed_ptr, means_ptr, err_ptr, R, NBYTES,
-                    BYTES: tl.constexpr):
-    row = tl.program_id(0).to(tl.int64)
-    g_row = g_ptr + row * R
-    e_row = e_ptr + row * R
-    byte = tl.arange(0, BYTES)
-    bit = tl.arange(0, 8)
-    s_pos = tl.zeros((BYTES, 8), dtype=tl.float32)
-    s_neg = tl.zeros((BYTES, 8), dtype=tl.float32)
-    n_pos = tl.zeros((BYTES, 8), dtype=tl.int32)
-    for b0 in range(0, NBYTES, BYTES):
-        idx = (b0 + byte)[:, None] * 8 + bit[None, :]
-        live = idx < R
-        w = tl.load(e_row + idx, mask=live, other=0.0) + \
-            tl.load(g_row + idx, mask=live, other=0.0)
-        pos = (w >= 0.0) & live
-        s_pos += tl.where(pos, w, 0.0)
-        s_neg += tl.where(pos, 0.0, w)
-        n_pos += pos.to(tl.int32)
-    count = tl.sum(tl.sum(n_pos, axis=1), axis=0)
-    mean_pos = tl.sum(tl.sum(s_pos, axis=1), axis=0) / \
-        tl.maximum(count, 1).to(tl.float32)
-    mean_neg = tl.sum(tl.sum(s_neg, axis=1), axis=0) / \
-        tl.maximum(R - count, 1).to(tl.float32)
-    tl.store(means_ptr + row * 2, mean_pos)
-    tl.store(means_ptr + row * 2 + 1, mean_neg)
-    out_row = err_ptr + row * R
-    packed_row = packed_ptr + row * NBYTES
-    for b0 in range(0, NBYTES, BYTES):
-        idx = (b0 + byte)[:, None] * 8 + bit[None, :]
-        live = idx < R
-        w = tl.load(e_row + idx, mask=live, other=0.0) + \
-            tl.load(g_row + idx, mask=live, other=0.0)
-        pos = (w >= 0.0) & live
-        tl.store(out_row + idx, w - tl.where(pos, mean_pos, mean_neg),
-                 mask=live)
-        bits = tl.sum(pos.to(tl.int32) << bit[None, :], axis=1)
-        tl.store(packed_row + b0 + byte, bits.to(tl.uint8),
-                 mask=(b0 + byte) < NBYTES)
+@functools.lru_cache(maxsize=None)
+def plan(m: int, r: int):
+    """-> ``(route, cluster, threads, units, passes)`` for an (m, r) call;
+    it depends on the shape alone, so a row's summation order never
+    depends on the card.
+
+    Warp rows (r <= WARP_ROW_MAX): ``("warp", 0, 32 W, U, 1)``, U (a power
+    of two) units a lane, W rows a block, doubled from 1 (up to
+    ROWS_PER_BLOCK_MAX) while the blocks would still number SMS or more.
+
+    Cluster rows: the cluster size C doubles from 1 (up to CLUSTER_MAX)
+    while 2 C m <= SMS (one CTA an SM) and either 8 m <= SMS (few rows:
+    spreading a row pays for the cluster barrier) or a thread of C CTAs of
+    CLUSTER_THREADS_MAX would hold more than two units.  The threads T
+    double from CLUSTER_THREADS_MIN (up to CLUSTER_THREADS_MAX) until C T
+    units cover the row, then the units U from 1 (up to
+    CLUSTER_UNITS_MAX); passes loop over what remains."""
+    nb = -(-r // 8)
+    if r <= WARP_ROW_MAX:
+        units = 1
+        while units * 32 < nb:
+            units *= 2
+        rows = 1
+        while rows < ROWS_PER_BLOCK_MAX and -(-m // (2 * rows)) >= SMS:
+            rows *= 2
+        return "warp", 0, 32 * rows, units, 1
+    c = 1
+    while (c < CLUSTER_MAX and 2 * c * m <= SMS
+           and (8 * m <= SMS or nb > 2 * c * CLUSTER_THREADS_MAX)):
+        c *= 2
+    t = CLUSTER_THREADS_MIN
+    while t < CLUSTER_THREADS_MAX and c * t < nb:
+        t *= 2
+    u = 1
+    while u < CLUSTER_UNITS_MAX and c * t * u < nb:
+        u *= 2
+    return "cluster", c, t, u, -(-nb // (c * t * u))
 
 
-def _kernel():
-    """Import Triton and JIT-wrap the kernel body (once)."""
-    global tl, _KERNEL
-    if _KERNEL is None:
-        import triton
-        import triton.language
+_CONSTANTS = (WARP_ROW_MAX, ROWS_PER_BLOCK_MAX, CLUSTER_THREADS_MIN,
+              CLUSTER_THREADS_MAX, CLUSTER_UNITS_MAX, CLUSTER_MAX)
 
-        tl = triton.language
-        _KERNEL = triton.jit(_onebit_ef_body)
-    return _KERNEL
+
+def _lib():
+    lib = _build.load("onebit_ef")
+    if not getattr(lib, "_typed", False):
+        lib.onebit_ef_constants.argtypes = [_VP]
+        lib.onebit_ef_constants.restype = None
+        got = (ctypes.c_longlong * len(_CONSTANTS))()
+        lib.onebit_ef_constants(got)
+        if tuple(got) != _CONSTANTS:
+            raise RuntimeError(f"onebit_ef: library constants {tuple(got)} "
+                               f"!= the wrapper's {_CONSTANTS}")
+        lib.onebit_ef_launch.argtypes = [_VP] * 5 + [_LL] * 5 + [_VP]
+        lib.onebit_ef_launch.restype = ctypes.c_int
+        lib._typed = True
+    return lib
 
 
 def _need(cond: bool, msg: str) -> None:
@@ -100,9 +113,8 @@ class OnebitEf:
     residual in place."""
 
     name = "onebit_ef"
-    source = "src/repro_torch/kernels/onebit_ef/kernel.py"
+    source = "src/repro_torch/kernels/onebit_ef/csrc/onebit_ef.cu"
     replaces = "src/repro/kernels/onebit_ef/kernel.py:40"
-    bytes_per_chunk = 128
 
     def __init__(self):
         self.launches = 0
@@ -122,16 +134,19 @@ class OnebitEf:
                       f"{what} must be contiguous float32 {(m, r)} on "
                       f"{g.device}")
         _need(err is not None, "err is required")
-        kernel = _kernel()
-        nbytes = (r + 7) // 8
+        _, cluster, threads, units, _ = plan(m, r)
+        lib = _lib()
         with torch.cuda.device(g.device):
             new_err = out_err if out_err is not None else torch.empty_like(g)
-            packed = torch.empty((m, nbytes), dtype=torch.uint8,
+            packed = torch.empty((m, (r + 7) // 8), dtype=torch.uint8,
                                  device=g.device)
             means = torch.empty((m, 2), dtype=torch.float32, device=g.device)
-            kernel[(m,)](g, err, packed, means, new_err, r, nbytes,
-                         BYTES=self.bytes_per_chunk, num_warps=4,
-                         enable_fp_fusion=False)
+            stream = torch.cuda.current_stream(g.device).cuda_stream
+            rc = lib.onebit_ef_launch(
+                g.data_ptr(), err.data_ptr(), packed.data_ptr(),
+                means.data_ptr(), new_err.data_ptr(), m, r, cluster, threads,
+                units, stream)
+        _build.check(rc, self.name)
         self.launches += 1
         return packed, means, new_err
 

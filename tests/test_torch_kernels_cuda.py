@@ -508,13 +508,25 @@ def test_sim_step_kernels_raise_on_what_they_do_not_take(cuda):
 
 
 @pytest.mark.parametrize("m,r", [(8, 32), (16, 512), (32, 4096), (8, 100),
-                                 (3, 1), (1, 70001), (64, 7)])
+                                 (3, 1), (1, 70001), (64, 7), (256, 256),
+                                 (8, 2048), (8, 2049), (1, 131072),
+                                 (1, 131073), (1, 1 << 20), (200, 50000)])
 def test_onebit_ef_kernel_matches_plain(cuda, m, r):
+    """Both routes and their edges (the warp route up to WARP_ROW_MAX = 2048
+    entries, a cluster's registers up to 131,072, passes beyond; one CTA a
+    row at (32, 4096) and, looping, at (200, 50000)).  Row 0
+    holds -0.0 entries (the + class) when M >= 2, row 1 a NaN (the - class)
+    when M >= 3, the last row is all zero."""
     from repro_torch.kernels.onebit_ef.kernel import onebit_ef
     from repro_torch.kernels.onebit_ef.ref import onebit_ef_plain
     gen = torch.Generator(device=cuda).manual_seed(r)
     g = torch.randn((m, r), generator=gen, device=cuda)
     e = 0.1 * torch.randn((m, r), generator=gen, device=cuda)
+    if m >= 2:
+        g[0, ::3] = -0.0
+        e[0, ::3] = -0.0
+    if m >= 3:
+        g[1, r // 2] = float("nan")
     g[-1] = 0.0                      # a row of zeros: all in the + class
     e[-1] = 0.0
     got = onebit_ef(g, e)
@@ -523,24 +535,50 @@ def test_onebit_ef_kernel_matches_plain(cuda, m, r):
     torch.cuda.synchronize()
     assert got[0].shape == (m, (r + 7) // 8)
     assert torch.equal(got[0], want[0])
-    torch.testing.assert_close(got[1], want[1], rtol=1e-6, atol=1e-6)
-    torch.testing.assert_close(got[2], want[2], rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-6, atol=1e-6,
+                               equal_nan=True)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-6, atol=1e-6,
+                               equal_nan=True)
     for x1, x2 in zip(got, again):
-        assert torch.equal(x1, x2)
+        assert torch.equal(x1.view(torch.uint8), x2.view(torch.uint8))
 
 
-def test_onebit_ef_kernel_residual_in_place(cuda):
-    from repro_torch.kernels.onebit_ef.kernel import onebit_ef
+@pytest.mark.parametrize("m,r", [(8, 1000), (32, 4096), (8, 4096),
+                                 (2, 200001)])
+def test_onebit_ef_kernel_residual_in_place(cuda, m, r):
+    """out_err = err on each route: the warp rows, one CTA a row, a cluster
+    of 8 holding its row in registers and a row that loops over passes
+    (read again after the cluster's exchange)."""
+    from repro_torch.kernels.onebit_ef.kernel import onebit_ef, plan
     from repro_torch.kernels.onebit_ef.ref import onebit_ef_plain
     gen = torch.Generator(device=cuda).manual_seed(3)
-    g = torch.randn((8, 1000), generator=gen, device=cuda)
-    e = torch.randn((8, 1000), generator=gen, device=cuda)
+    g = torch.randn((m, r), generator=gen, device=cuda)
+    e = torch.randn((m, r), generator=gen, device=cuda)
     want = onebit_ef_plain(g, e)
+    apart = onebit_ef(g, e)
     err = e.clone()
     got = onebit_ef(g, err, out_err=err)
     torch.cuda.synchronize()
     assert got[2].data_ptr() == err.data_ptr()
     torch.testing.assert_close(err, want[2], rtol=1e-6, atol=1e-6)
+    for x1, x2 in zip(got, apart):
+        assert torch.equal(x1, x2)
+    assert plan(m, r)[0] == ("warp" if r <= 2048 else "cluster")
+
+
+def test_onebit_ef_kernel_raises_on_what_it_does_not_take(cuda):
+    from repro_torch.kernels.onebit_ef.kernel import onebit_ef
+    g = torch.randn((8, 64), device=cuda)
+    e = torch.zeros_like(g)
+    before = onebit_ef.launches
+    for bad_g, bad_e in ((g.t().contiguous().t(), e.t().contiguous().t()),
+                         (g[:, ::2], e[:, ::2]), (g.half(), e),
+                         (g.cpu(), e)):
+        with pytest.raises(ValueError):
+            onebit_ef(bad_g, bad_e)
+    with pytest.raises(ValueError):
+        onebit_ef(g, e, out_err=torch.empty((64, 8), device=cuda).t())
+    assert onebit_ef.launches == before
 
 
 def test_fused_sweep_bitwise_equal_to_single_runs(cuda):
