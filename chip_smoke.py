@@ -112,7 +112,31 @@ Phases (any failure exits non-zero):
     zeroed just before each run and read just after;
 23. one ``topk_ef`` sync step under ``torch.profiler`` (at most 5 device
     kernels a ``topk_ef`` call; K4's kernels a call logged, as K2's in
-    phase 6).
+    phase 6);
+24. small inputs, card against CPU: ``rwkv6-1.6b-smoke`` and gemma3's
+    grouped stack (``gemma3-27b-smoke`` with 7 layers, every third global,
+    window 32): forward, prefill of 128 and 4 decode steps, in f32 compute
+    and bf16; ``rwkv6-1.6b-smoke`` with 2 workers through phase 3's and
+    phase 21's checks: one async top-k delivery and one ``--sync
+    topk_ef`` step fed the same gradients, the model's loss and a whole
+    ``topk_ef`` step's loss;
+25. RWKV6 training at full width: ``rwkv6-1.6b`` (24 layers, d 2048, d_ff
+    7168, vocab 65,536; 19 leaves), seq 256, batch 4, 2 workers, through
+    ``repro_torch.launch.train.main``: 2 steps of ``--sync async
+    --compressor topk`` (exactly 76 ``topk_ef`` and 38
+    ``topk_cr_deposit`` launches), then 2 of ``--sync topk_ef`` (76
+    ``topk_ef`` and 38 ``topk_cr_reduce``); counters zeroed just before
+    each run and read just after, the peak memory under 0.90 of the card;
+26. one RWKV6 async step under ``torch.profiler``, the kernels launched
+    inside the ``wkv6_chunked`` range grouped apart;
+27. RWKV6 serving at full width through ``--engine loop``: batch 4, prompt
+    4096, 32 tokens, greedy;
+28. gemma3-27b serving at full width and depth (62 layers, 5 local with
+    window 1024 to 1 global) through ``--engine loop``: batch 1, prompt
+    2048, 16 tokens, greedy; phases 27 and 28 launch no kernel of the
+    port, check every step's logits finite and log prefill seconds,
+    decode steps/s and the peak memory, then profile the model's prefill
+    and one decode step (device time by group, busy share).
 
 The last three lines of standard output are the kernels' JSON record, the
 card's name and power limit, and the result ``{"ok": true, "device":
@@ -157,7 +181,8 @@ PROFILE_GROUPS = (
     ("K3 onebit_cr_deposit", ("onebit_deposit",)),
     ("K4 topk_cr_reduce", ("topk_reduce_",)),
     ("K5 onebit_cr_reduce", ("onebit_reduce",)),
-    ("matmul", ("gemm", "xmma", "cutlass", "cublas", "sm90_", "sm80_")),
+    ("matmul", ("nvjet", "gemm", "gemv", "xmma", "cutlass", "cublas",
+                "sm90_", "sm80_")),
     ("copy / cast", ("copy", "Memcpy", "Memset")),
     ("elementwise / reduce", ("elementwise", "reduce", "softmax",
                               "index")),
@@ -248,6 +273,15 @@ def require(cond: bool, what: str) -> None:
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
+
+def model_leaves(arch: str) -> int:
+    """Stacked parameter leaves of ``arch``: one K1 call a leaf a worker
+    and one K2 or K4 call a leaf a step."""
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TF
+    return len(T.leaves(TF.model_defs(get_config(arch))))
+
 
 def _topk_check(torch, topk_ef, topk_ef_plain, g, e, k):
     """K1 against its plain version: the picks bitwise in the documented
@@ -455,7 +489,13 @@ def check_deposits(torch, dev, gen, records):
 # phase 3: the path on a small input, card against CPU
 # ---------------------------------------------------------------------------
 
-def check_small_path(torch, dev):
+def check_small_path(torch, dev, arch="qwen3-1.7b-smoke",
+                     runs=(("topk", 3), ("onebit", 1))):
+    """Phase 3 (and 24): the delivery half of ``arch``'s async step, 2
+    workers, fed the same numpy gradients for each (compressor, steps) of
+    ``runs`` on the card and on the CPU (params, rings and EF residuals
+    within 1e-6, the stale gap within rtol 1e-5), then the model's loss on
+    both within 2e-2."""
     import numpy as np
 
     from repro_torch import tree as T
@@ -469,13 +509,13 @@ def check_small_path(torch, dev):
     from repro_torch.models.params import init_params, param_specs
     from repro_torch.optim import constant, momentum
 
-    cfg = get_config("qwen3-1.7b-smoke")
+    cfg = get_config(arch)
     defs = TF.model_defs(cfg)
     specs = param_specs(defs)
     base = init_params(defs, torch.Generator().manual_seed(0), "cpu")
     rng = np.random.default_rng(0)
     leaves = T.leaves(base)
-    for compressor, steps in (("topk", 3), ("onebit", 1)):
+    for compressor, steps in runs:
         acfg = AsyncConfig(tau_max=2, schedule="uniform", seed=1,
                            compressor=compressor, topk_ratio=TOPK_RATIO)
         runs = {}
@@ -499,7 +539,7 @@ def check_small_path(torch, dev):
                             + T.leaves(state["err"]), float(m["stale_gap2"]))
         (cpu, gap_c), (card, gap_g) = runs["cpu"], runs[str(dev)]
         err = max(float((a.cpu() - b).abs().max()) for a, b in zip(card, cpu))
-        log(f"check path {compressor} smoke delivery, card vs cpu, {steps} "
+        log(f"check path {arch} {compressor} delivery, card vs cpu, {steps} "
             f"steps: params/acc/err max_abs_err {err}, stale_gap2 "
             f"{gap_g} vs {gap_c}")
         require(err <= 1e-6 and math.isclose(gap_g, gap_c, rel_tol=1e-5),
@@ -509,7 +549,7 @@ def check_small_path(torch, dev):
         l_cpu = float(loss_fn(cfg, base, to_device(batch, "cpu"))[0])
         l_card = float(loss_fn(cfg, T.tree_map(lambda p: p.to(dev), base),
                                to_device(batch, dev))[0])
-    log(f"check smoke model loss card {l_card:.6f} vs cpu {l_cpu:.6f}")
+    log(f"check {arch} loss card {l_card:.6f} vs cpu {l_cpu:.6f}")
     require(abs(l_card - l_cpu) < 2e-2, "smoke loss differs card vs cpu")
 
 
@@ -517,17 +557,18 @@ def check_small_path(torch, dev):
 # phases 4 and 5: the main path
 # ---------------------------------------------------------------------------
 
-def run_path(torch, kernels, compressor: str, steps: int):
+def run_path(torch, kernels, compressor: str, steps: int,
+             arch: str = "qwen3-1.7b"):
     """Drive the main path through the trainer's entry point, with the
     launch counters zeroed just before; returns the counts after it.  The
     peak memory must stay within 90% of the card (with ``track_gap`` on)."""
     from repro_torch.launch import train
 
-    argv = ["--arch", "qwen3-1.7b", "--sync", "async", "--compressor",
+    argv = ["--arch", arch, "--sync", "async", "--compressor",
             compressor, "--topk-ratio", str(TOPK_RATIO), "--ef", "--overlap",
             "--tau-max", "2", "--async-schedule", "uniform", "--workers", "2",
             "--batch", "4", "--seq", "256", "--steps", str(steps),
-            "--device", "cuda", "--seed", "0"]
+            "--device", "cuda", "--seed", "0", "--log-every", "1"]
     log(f"path: python -m repro_torch.launch.train {' '.join(argv)}")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -539,9 +580,10 @@ def run_path(torch, kernels, compressor: str, steps: int):
     counts = {k.name: k.launches for k in kernels}
     peak = torch.cuda.max_memory_allocated()
     total = torch.cuda.get_device_properties(0).total_memory
-    log(f"path {compressor}: {steps} steps in {wall:.2f} s (model init "
-        f"included); peak memory {peak} bytes ({peak / total:.3f} of "
-        f"{total}); launches {json.dumps(counts)}")
+    log(f"path {arch} {compressor}: {steps} steps in {wall:.2f} s (model "
+        f"init included); step_s {[round(r['step_s'], 4) for r in history]};"
+        f" losses {[r['loss'] for r in history]}; peak memory {peak} bytes "
+        f"({peak / total:.4f} of {total}); launches {json.dumps(counts)}")
     require(len(history) == steps, "missing steps")
     require(peak <= 0.9 * total, "peak memory above 90% of the card")
     for row in history:
@@ -550,12 +592,15 @@ def run_path(torch, kernels, compressor: str, steps: int):
     return counts
 
 
-def profile_step(torch, title: str = "profile step", sync=None) -> None:
-    """Where a training step's device time goes: full-width qwen3-1.7b as
+def profile_step(torch, title: str = "profile step", sync=None,
+                 arch: str = "qwen3-1.7b") -> None:
+    """Where a training step's device time goes: full-width ``arch`` as
     phase 4 (``sync=None``: the async top-k step) or phase 22 (``sync``:
     that synchronous strategy, 2 workers) builds it, through the same
     public functions; one warm-up step, then one step under
-    ``torch.profiler``; prints device time by kernel group and the
+    ``torch.profiler``; prints device time by kernel group (kernels that a
+    torch op inside a ``wkv6_chunked`` range launched, the RWKV6 WKV
+    loop's forward and its recompute, form their own group) and the
     device-busy share of the step's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -573,11 +618,12 @@ def profile_step(torch, title: str = "profile step", sync=None) -> None:
     from repro_torch.optim import constant, momentum
 
     dev = torch.device("cuda")
-    cfg = get_config("qwen3-1.7b")
+    cfg = get_config(arch)
     defs = TF.model_defs(cfg)
     specs = param_specs(defs)
     params = init_params(defs, torch.Generator(device=dev).manual_seed(0),
                          dev)
+    n_leaves = len(T.leaves(params))
     opt = momentum(constant(3e-3), 0.9)
     opt_state = opt.init(T.leaves(params))
     if sync is None:
@@ -600,38 +646,30 @@ def profile_step(torch, title: str = "profile step", sync=None) -> None:
                                            batches[1])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernel_type = torch.autograd.DeviceType.CUDA
-    rows = [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages()
-            if e.device_type == kernel_type and e.self_device_time_total > 0]
-    busy_us = sum(r[1] for r in rows)
-    log(f"{title}: wall {wall * 1e3:.1f} ms (profiler on), device "
-        f"kernels {busy_us / 1e3:.1f} ms ({busy_us / 1e3 / (wall * 1e3):.3f}"
-        f" of wall), loss {float(m['loss']):.6f}")
-    groups = {}
-    for key, us, count in rows:
-        group = next((g for g, pats in PROFILE_GROUPS if any(
-            p in key for p in pats)), "other")
-        t, c = groups.get(group, (0.0, 0))
-        groups[group] = (t + us, c + count)
-    for group, (us, count) in sorted(groups.items(), key=lambda g: -g[1][0]):
-        log(f"  group {group:<24s} {us / 1e3:9.3f} ms  x{count}")
-    for key, us, count in sorted(rows, key=lambda r: -r[1])[:12]:
-        log(f"  {us / 1e3:9.3f} ms  x{count:<5d} {key[:100]}")
-    # K1 compresses each of the 13 leaves for each of the 2 workers; K2 or
-    # K4 takes each leaf's 2 messages in one call
+    groups, per_name = device_groups(torch, prof, PROFILE_GROUPS,
+                                     "wkv6_chunked", "WKV6 forward")
+    log_groups(f"{title} ({arch}), loss {float(m['loss']):.6f}", wall,
+               groups, per_name)
+    # K1 compresses each leaf for each of the 2 workers; K2 or K4 takes
+    # each leaf's 2 messages in one call
     k1 = groups.get("K1 topk_ef", (0.0, 0))[1]
-    log(f"  K1 device kernels a call: {k1 / 26:.2f} ({k1} in 26 calls)")
-    require(0 < k1 <= 5 * 26, f"K1 launched {k1} kernels in 26 calls")
+    calls = 2 * n_leaves
+    log(f"  K1 device kernels a call: {k1 / calls:.2f} ({k1} in {calls} "
+        f"calls)")
+    require(0 < k1 <= 5 * calls, f"K1 launched {k1} kernels in {calls} "
+            "calls")
     name = "K2 topk_cr_deposit" if sync is None else "K4 topk_cr_reduce"
     us, count = groups.get(name, (0.0, 0))
     log(f"  {name}: {us / 1e3:.3f} ms in {count} device kernels, "
-        f"{count / 13:.2f} a call (13 calls)")
+        f"{count / n_leaves:.2f} a call ({n_leaves} calls)")
     pats = dict(PROFILE_GROUPS)[name]
-    for key, kus, kcount in rows:
+    for key, (kus, kcount) in per_name.items():
         if any(p in key for p in pats):
             log(f"    {kus / 1e3:9.3f} ms  x{kcount:<4d} {key[:90]}")
     require(count > 0, f"{name} ran no device kernel")
+    if cfg.block_type == "rwkv6":
+        require(groups.get("WKV6 forward", (0.0, 0))[1] > 0,
+                "no device kernel inside the wkv6_chunked range")
 
 
 # ---------------------------------------------------------------------------
@@ -1772,29 +1810,44 @@ def check_small_hybrid(torch, dev):
         TF.COMPUTE_DTYPE = compute
 
 
-def hybrid_argv():
-    return ["--arch", "zamba2-7b", "--engine", "loop", "--batch",
-            str(HYBRID_BATCH), "--prompt-len", str(HYBRID_PROMPT), "--gen",
-            str(HYBRID_GEN), "--device", "cuda", "--seed", "0"]
-
-
 def run_hybrid_serve(torch, kernels):
     """Phase 18: zamba2-7b at full width and depth through the serving
-    launcher's loop, with the launch counters zeroed just before; every
-    sampled step's logits are checked finite on the device."""
+    launcher's loop: K10 once per Mamba2 layer of the batched prefill."""
+    from repro_torch.configs import get_config
+
+    n = get_config("zamba2-7b").n_layers
+    counts, prefill_s = run_loop_serve(
+        torch, kernels, "zamba2-7b", HYBRID_BATCH, HYBRID_PROMPT, HYBRID_GEN,
+        want={"ssd_chunked": n})
+    log(f"hybrid path: prefill {prefill_s:.4f} s against "
+        f"{EARLIER_HYBRID['batch-4 prefill s']} s before K10's redesign "
+        f"(recorded, not measured in this run)")
+    return counts
+
+
+def run_loop_serve(torch, kernels, arch, batch, prompt, gen, want=None):
+    """Phases 18, 27 and 28: ``arch`` at full width and depth through the
+    serving launcher's loop, with the launch counters zeroed just before:
+    exactly ``want`` (kernel name -> launches) and no other kernel of the
+    port; every sampled step's logits are checked finite on the device.
+    Returns (counts, prefill seconds)."""
     from repro_torch.configs import get_config
     from repro_torch.dist import train as DT
     from repro_torch.launch import serve
 
-    cfg = get_config("zamba2-7b")
-    argv = hybrid_argv()
-    log(f"hybrid path: python -m repro_torch.launch.serve {' '.join(argv)} "
-        f"({cfg.n_layers} Mamba2 layers, shared attention every "
-        f"{cfg.shared_attn_every}; {cfg.param_count()} parameters by "
-        f"param_count)")
+    cfg = get_config(arch)
+    argv = ["--arch", arch, "--engine", "loop", "--batch", str(batch),
+            "--prompt-len", str(prompt), "--gen", str(gen), "--device",
+            "cuda", "--seed", "0"]
+    log(f"loop serve: python -m repro_torch.launch.serve {' '.join(argv)} "
+        f"({cfg.n_layers} layers, windows "
+        f"{sorted(set(cfg.layer_window_sizes()))}; {cfg.param_count()} "
+        f"parameters by param_count)")
+    gc.collect()
+    torch.cuda.empty_cache()
     total = torch.cuda.get_device_properties(0).total_memory
     left = torch.cuda.memory_allocated()
-    log(f"hybrid path: memory allocated before loading {left} bytes")
+    log(f"loop serve {arch}: memory allocated before loading {left} bytes")
     require(left < 2 ** 30, "earlier phases left memory allocated")
     finite = []
     sample_tokens = DT.sample_tokens
@@ -1817,36 +1870,36 @@ def run_hybrid_serve(torch, kernels):
     prefill_s = out["prefill_s"][0]
     decode_s = out["wall_s"] - prefill_s
     n_tok = sum(len(t) for t in toks)
-    log(f"hybrid path: {len(toks)} sequences x {HYBRID_GEN} tokens, wall "
+    log(f"loop serve {arch}: {len(toks)} sequences x {gen} tokens, wall "
         f"{out['wall_s']:.4f} s; prefill {prefill_s:.4f} s (CUDA events, "
-        f"{HYBRID_BATCH} x {HYBRID_PROMPT} tokens); decode "
-        f"{(HYBRID_GEN - 1) / decode_s:.4f} steps/s ({HYBRID_GEN - 1} steps "
-        f"in {decode_s:.4f} s); {n_tok / out['wall_s']:.4f} tokens/s end to "
-        f"end; peak memory {peak} bytes ({peak / total:.4f} of {total}); "
-        f"launches {json.dumps(counts)}")
-    log(f"hybrid path: prefill {prefill_s:.4f} s against "
-        f"{EARLIER_HYBRID['batch-4 prefill s']} s before K10's redesign "
-        f"(recorded, not measured in this run)")
-    require(counts["ssd_chunked"] == cfg.n_layers,
-            f"ssd_chunked launched {counts['ssd_chunked']} times, not "
-            f"{cfg.n_layers} (one batched prefill)")
-    require(all(c == 0 for n, c in counts.items() if n != "ssd_chunked"),
-            "a kernel off the hybrid serving path was launched")
-    require(len(toks) == HYBRID_BATCH and all(
-        len(t) == HYBRID_GEN and int(t.min()) >= 0
+        f"{batch} x {prompt} tokens); decode {(gen - 1) / decode_s:.4f} "
+        f"steps/s ({gen - 1} steps in {decode_s:.4f} s); "
+        f"{n_tok / out['wall_s']:.4f} tokens/s end to end; peak memory "
+        f"{peak} bytes ({peak / total:.4f} of {total}); launches "
+        f"{json.dumps(counts)}")
+    want = want or {}
+    for name, count in counts.items():
+        require(count == want.get(name, 0),
+                f"serving {arch}: {name} launched {count} times, not "
+                f"{want.get(name, 0)}")
+    require(len(toks) == batch and all(
+        len(t) == gen and int(t.min()) >= 0
         and int(t.max()) < cfg.vocab_size for t in toks),
         "a sequence did not complete with in-vocab tokens")
-    require(len(finite) == HYBRID_GEN and all(bool(f) for f in finite),
-            "non-finite logits on the hybrid serving path")
+    require(len(finite) == gen and all(bool(f) for f in finite),
+            f"non-finite logits serving {arch}")
     require(peak <= 0.9 * total, "peak memory above 90% of the card")
-    return counts
+    return counts, prefill_s
 
 
-def profile_hybrid(torch) -> None:
-    """Phase 19: one batch-1 prefill of the phase-18 model (4096 tokens)
-    and one decode step after it, each under torch.profiler, device time
-    grouped as K10, attention (kernels that a torch op inside the
-    ``shared_attention`` range launched), matmul and other."""
+def profile_loop(torch, arch, batch, prompt, groups=PROFILE_GROUPS,
+                 range_name="wkv6_chunked", range_group="WKV6"):
+    """Phases 19, 27 and 28: the served model's prefill (``batch`` x
+    ``prompt``) and a decode step after it, each after a warm-up call and
+    under torch.profiler, through the step builders the loop uses; device
+    time by group (kernels that a torch op inside the ``range_name``
+    profiler range launched form ``range_group``) and the device-busy
+    share of each.  Returns the prefill's (wall s, groups)."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -1855,22 +1908,25 @@ def profile_hybrid(torch) -> None:
     from repro_torch.models import transformer as TF
     from repro_torch.models.params import init_serving_params
 
+    gc.collect()
+    torch.cuda.empty_cache()
     dev = torch.device("cuda")
-    cfg = get_config("zamba2-7b")
+    cfg = get_config(arch)
     params = init_serving_params(
         TF.model_defs(cfg), torch.Generator(device=dev).manual_seed(0), dev)
     toks = np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (1, HYBRID_PROMPT)).astype(np.int32)
-    batch = {"tokens": torch.tensor(toks, device=dev)}
-    prefill = make_prefill_step(cfg, HYBRID_PROMPT + HYBRID_GEN)
+        0, cfg.vocab_size, (batch, prompt)).astype(np.int32)
+    tokens = {"tokens": torch.tensor(toks, device=dev)}
+    prefill = make_prefill_step(cfg, prompt + 8)
     decode = make_decode_step(cfg)
-    tok, cache = prefill(params, batch)              # warm-up
+    tok, cache = prefill(params, tokens)                  # warm-up
     tok, cache = decode(params, cache, tok[:, None])
     torch.cuda.synchronize()
+    out = None
     for title, step in (
-            (f"profile hybrid prefill (batch 1 x {HYBRID_PROMPT})",
-             lambda: prefill(params, batch)),
-            ("profile hybrid decode step (batch 1)",
+            (f"profile {arch} prefill ({batch} x {prompt})",
+             lambda: prefill(params, tokens)),
+            (f"profile {arch} decode step (batch {batch})",
              lambda: decode(params, cache, tok[:, None]))):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1878,16 +1934,27 @@ def profile_hybrid(torch) -> None:
             step()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        groups, per_name = device_groups(torch, prof, HYBRID_GROUPS,
-                                         "shared_attention", "attention")
-        log_groups(title, wall, groups, per_name)
-        if "prefill" in title:
-            k10_ms = groups.get("K10 ssd_chunked", (0.0, 0))[0] / 1e3
-            log(f"  K10 group {k10_ms:.3f} ms and wall {wall * 1e3:.2f} ms "
-                f"against {EARLIER_HYBRID['batch-1 prefill K10 ms']} ms and "
-                f"{EARLIER_HYBRID['batch-1 prefill wall ms']} ms before "
-                f"K10's redesign (recorded, not measured in this run)")
+        found, per_name = device_groups(torch, prof, groups, range_name,
+                                        range_group)
+        log_groups(title, wall, found, per_name)
+        out = out or (wall, found)
     del params, cache
+    return out
+
+
+def profile_hybrid(torch) -> None:
+    """Phase 19: one batch-1 prefill of the phase-18 model (4096 tokens)
+    and one decode step after it, device time grouped as K10, attention
+    (kernels that a torch op inside the ``shared_attention`` range
+    launched), matmul and other."""
+    wall, groups = profile_loop(torch, "zamba2-7b", 1, HYBRID_PROMPT,
+                                HYBRID_GROUPS, "shared_attention",
+                                "attention")
+    k10_ms = groups.get("K10 ssd_chunked", (0.0, 0))[0] / 1e3
+    log(f"  K10 group {k10_ms:.3f} ms and wall {wall * 1e3:.2f} ms against "
+        f"{EARLIER_HYBRID['batch-1 prefill K10 ms']} ms and "
+        f"{EARLIER_HYBRID['batch-1 prefill wall ms']} ms before K10's "
+        f"redesign (recorded, not measured in this run)")
 
 
 # ---------------------------------------------------------------------------
@@ -2055,12 +2122,14 @@ def _check_reduce(torch, name, tag, runs, worst):
     require(same and repeat, f"{name} {tag} != plain version")
 
 
-def check_small_sync(torch, dev):
-    """Phase 21: qwen3-1.7b-smoke, 2 workers, 2 steps of each synchronous
-    strategy on the card against the same code on the CPU: the sync/update
-    half fed the same numpy gradients (params and per-worker state within
-    1e-6, gap2 within rtol 1e-5, as phase 3), then the whole step's losses
-    within 2e-2 (the port's bf16 forward/backward on two devices)."""
+def check_small_sync(torch, dev, arch="qwen3-1.7b-smoke", syncs=SYNC_STEPS,
+                     steps=2):
+    """Phase 21 (and 24): ``arch``, 2 workers, ``steps`` steps of each
+    synchronous strategy of ``syncs`` on the card against the same code on
+    the CPU: the sync/update half fed the same numpy gradients (params and
+    per-worker state within 1e-6, gap2 within rtol 1e-5, as phase 3), then
+    the whole step's losses within 2e-2 (the port's bf16 forward/backward
+    on two devices)."""
     import numpy as np
 
     from repro_torch import tree as T
@@ -2073,19 +2142,19 @@ def check_small_sync(torch, dev):
     from repro_torch.models.params import init_params, param_specs
     from repro_torch.optim import constant, momentum
 
-    cfg = get_config("qwen3-1.7b-smoke")
+    cfg = get_config(arch)
     specs = param_specs(TF.model_defs(cfg))
     base = init_params(TF.model_defs(cfg), torch.Generator().manual_seed(0),
                        "cpu")
     rng = np.random.default_rng(0)
     data = SyntheticLMDataset(cfg.vocab_size, 64, 4, seed=0)
-    for sync in SYNC_STEPS:
+    for sync in syncs:
         # beta 0.5: the elastic norm gate defers some buckets of random
         # gradients (at 0.9 it syncs all of them)
         scfg = SyncConfig(strategy=sync, topk_ratio=TOPK_RATIO, beta=0.5)
         grads = [[[rng.standard_normal(p.shape).astype(np.float32)
                    for p in T.leaves(base)] for _ in range(2)]
-                 for _ in range(2)]
+                 for _ in range(steps)]
         runs = {}
         for d in ("cpu", dev):
             fed, whole = [], []
@@ -2096,7 +2165,7 @@ def check_small_sync(torch, dev):
                 state = init_dist_sync_state(scfg, 2, params)
                 step = make_elastic_train_step(cfg, opt, scfg, 2, specs)
                 _, td = T.flatten(params)
-                for t in range(2):
+                for t in range(steps):
                     if feed_grads:
                         feed = [(torch.zeros((), device=d), T.unflatten(
                             td, [torch.from_numpy(x).to(d)
@@ -2120,7 +2189,7 @@ def check_small_sync(torch, dev):
         err = max(float((a.detach().cpu() - b.detach()).abs().max())
                   for a, b in zip(card, cpu))
         dloss = max(abs(a - b) for a, b in zip(loss_g, loss_c))
-        log(f"check sync {sync} smoke, 2 workers, card vs cpu: fed "
+        log(f"check sync {sync} {arch}, 2 workers, card vs cpu: fed "
             f"gradients params/state max_abs_err {err}, gap2_over_alpha2 "
             f"{gap_g} vs {gap_c}; whole-step losses card {loss_g} cpu "
             f"{loss_c} (max diff {dloss})")
@@ -2129,17 +2198,21 @@ def check_small_sync(torch, dev):
         require(dloss < 2e-2, f"{sync} smoke losses differ card vs cpu")
 
 
-def run_sync_path(torch, kernels, sync: str):
-    """Phase 22: full-width qwen3-1.7b through the trainer's entry point
-    with ``--sync sync``, the launch counters zeroed just before; returns
-    the counts after it.  Every loss and gap finite, peak memory within
-    90% of the card."""
+def run_sync_path(torch, kernels, sync: str, arch: str = "qwen3-1.7b",
+                  steps: int = 0):
+    """Phase 22 (and 25): full-width ``arch`` through the trainer's entry
+    point with ``--sync sync`` for ``steps`` (default ``SYNC_STEPS``), the
+    launch counters zeroed just before; returns the counts after it.
+    Every loss and gap finite, peak memory within 90% of the card, and
+    each kernel launched exactly as often as the leaves say."""
     from repro_torch.launch import train
 
-    steps = SYNC_STEPS[sync]
-    argv = ["--arch", "qwen3-1.7b", "--sync", sync, "--topk-ratio",
+    steps = steps or SYNC_STEPS[sync]
+    n_leaves = model_leaves(arch)
+    argv = ["--arch", arch, "--sync", sync, "--topk-ratio",
             str(TOPK_RATIO), "--workers", "2", "--batch", "4", "--seq",
-            "256", "--steps", str(steps), "--device", "cuda", "--seed", "0"]
+            "256", "--steps", str(steps), "--device", "cuda", "--seed", "0",
+            "--log-every", "1"]
     log(f"sync path: python -m repro_torch.launch.train {' '.join(argv)}")
     gc.collect()
     torch.cuda.empty_cache()
@@ -2152,25 +2225,131 @@ def run_sync_path(torch, kernels, sync: str):
     counts = {k.name: k.launches for k in kernels}
     peak = torch.cuda.max_memory_allocated()
     total = torch.cuda.get_device_properties(0).total_memory
-    log(f"sync path {sync}: {steps} steps in {wall:.2f} s (model init "
-        f"included); step_s {[round(r['step_s'], 4) for r in history]}; "
-        f"peak memory {peak} bytes ({peak / total:.4f} of {total}); "
-        f"launches {json.dumps(counts)}")
+    log(f"sync path {arch} {sync}: {steps} steps in {wall:.2f} s (model "
+        f"init included); step_s {[round(r['step_s'], 4) for r in history]};"
+        f" losses {[r['loss'] for r in history]}; peak memory {peak} bytes "
+        f"({peak / total:.4f} of {total}); launches {json.dumps(counts)}")
     require(len(history) == steps, "missing steps")
     require(peak <= 0.9 * total, "peak memory above 90% of the card")
     for row in history:
         require(math.isfinite(row["loss"]) and
                 math.isfinite(row["gap2_over_alpha2"]),
                 f"non-finite step {row}")
-    want = {"topk_ef": {"topk_ef": 13 * 2 * steps,
-                        "topk_cr_reduce": 13 * steps},
-            "onebit_ef": {"onebit_cr_reduce": 13 * steps},
+    want = {"topk_ef": {"topk_ef": n_leaves * 2 * steps,
+                        "topk_cr_reduce": n_leaves * steps},
+            "onebit_ef": {"onebit_cr_reduce": n_leaves * steps},
             "elastic": {}}[sync]
     for name, count in counts.items():
         require(count == want.get(name, 0),
                 f"{sync}: {name} launched {count} times, not "
                 f"{want.get(name, 0)}")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phases 24-28: RWKV6 training and serving, gemma3's local:global stack
+# ---------------------------------------------------------------------------
+
+RWKV_ARCH = "rwkv6-1.6b"
+RWKV_STEPS = 2
+# phase 24: card against CPU.  f32 compute within SMALL_F32_TOL; bf16 within
+# SMALL_BF16_TOL, the bound the CPU parity tests hold these models to
+# against the reference (tests/test_torch_rwkv6.py, test_torch_archs.py)
+SMALL_F32_TOL, SMALL_BF16_TOL = 1e-3, 0.1
+# phases 27 and 28: (arch, batch, prompt, tokens) served through --engine loop
+LOOP_SERVES = (("rwkv6-1.6b", 4, 4096, 32), ("gemma3-27b", 1, 2048, 16))
+
+
+def _model_logits(torch, TF, cfg, params, d, toks, feed):
+    """forward, prefill + teacher-forced decode steps of ``cfg`` on device
+    ``d``: the logits of each, f32 on the CPU."""
+    from repro_torch import tree as T
+    p = T.tree_map(lambda a: a.to(d), params)
+    batch = {"tokens": torch.tensor(toks, device=d)}
+    with torch.no_grad():
+        out = [TF.forward(cfg, p, batch)[0].float().cpu()]
+        lg, cache = TF.prefill(cfg, p, batch, toks.shape[1] + len(feed))
+        out.append(lg.float().cpu())
+        for f in feed:
+            lg, cache = TF.decode_step(cfg, p, cache,
+                                       torch.tensor(f, device=d))
+            out.append(lg.float().cpu())
+    return out
+
+
+def check_small_models(torch, dev):
+    """Phase 24, models: rwkv6-1.6b-smoke and gemma3's grouped stack
+    (gemma3-27b-smoke with n_layers 7, global_every 3: windows [32, 32, 0,
+    32, 32, 0, 32]) on the card against the same code on the CPU: forward,
+    prefill of 128 and 4 teacher-forced decode steps, in f32 compute and
+    in bf16, with TF32 and reduced-precision bf16 reductions off."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.params import init_params
+
+    gemma = dataclasses.replace(get_config("gemma3-27b-smoke"), n_layers=7,
+                                global_every=3)
+    require(gemma.layer_window_sizes() == [32, 32, 0, 32, 32, 0, 32],
+            "gemma3's grouped windows")
+    rng = np.random.default_rng(0)
+    set_matmul_precision(torch, False)
+    compute = TF.COMPUTE_DTYPE
+    try:
+        for cfg in (get_config("rwkv6-1.6b-smoke"), gemma):
+            toks = rng.integers(0, cfg.vocab_size, (2, 128)).astype(np.int32)
+            feed = rng.integers(0, cfg.vocab_size,
+                                (4, 2, 1)).astype(np.int32)
+            params = init_params(TF.model_defs(cfg),
+                                 torch.Generator().manual_seed(0), "cpu")
+            for dtype, tol in ((torch.float32, SMALL_F32_TOL),
+                               (torch.bfloat16, SMALL_BF16_TOL)):
+                TF.COMPUTE_DTYPE = dtype
+                cpu = _model_logits(torch, TF, cfg, params, "cpu", toks, feed)
+                card = _model_logits(torch, TF, cfg, params, dev, toks, feed)
+                err = max(float((a - b).abs().max())
+                          for a, b in zip(cpu, card))
+                finite = all(bool(torch.isfinite(a).all()) for a in card)
+                log(f"check model {cfg.name} n_layers {cfg.n_layers} windows "
+                    f"{cfg.layer_window_sizes()}, compute {dtype}, card vs "
+                    f"cpu, forward + prefill of 128 + 4 decode steps: logits "
+                    f"max_abs_err {err} (tol {tol}; max |logit| "
+                    f"{max(float(a.abs().max()) for a in cpu)})")
+                require(finite, f"{cfg.name}: non-finite logits on the card")
+                require(err <= tol, f"{cfg.name}: logits differ card vs cpu")
+    finally:
+        TF.COMPUTE_DTYPE = compute
+
+
+def run_rwkv6_training(torch, kernels, records):
+    """Phase 25: full-width rwkv6-1.6b through the trainer's entry point,
+    ``--sync async --compressor topk`` then ``--sync topk_ef``, 2 steps
+    each, the launch counters zeroed just before each run and read just
+    after: exactly 2 K1 calls a leaf a step and one K2 (async) or K4
+    (sync) call a leaf a step."""
+    n = model_leaves(RWKV_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = run_path(torch, kernels, "topk", RWKV_STEPS, arch=RWKV_ARCH)
+    want = {"topk_ef": n * 2 * RWKV_STEPS, "topk_cr_deposit": n * RWKV_STEPS}
+    for name, count in counts.items():
+        require(count == want.get(name, 0),
+                f"rwkv6 async: {name} launched {count} times, not "
+                f"{want.get(name, 0)}")
+    got = {"topk_ef": counts["topk_ef"],
+           "topk_cr_deposit": counts["topk_cr_deposit"]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = run_sync_path(torch, kernels, "topk_ef", arch=RWKV_ARCH,
+                           steps=RWKV_STEPS)
+    got["topk_ef"] += counts["topk_ef"]
+    got["topk_cr_reduce"] = counts["topk_cr_reduce"]
+    for name, count in got.items():
+        records[name]["rwkv6_launches"] = count
+    log(f"rwkv6 training: {n} leaves; launches {json.dumps(got)}")
 
 
 def main() -> int:
@@ -2293,6 +2472,22 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     profile_step(torch, "profile sync step (topk_ef)", sync="topk_ef")
+
+    # RWKV6 and gemma3: the small card-vs-CPU checks, full-width RWKV6
+    # training (K1 with K2 or K4 on its 19 leaves) and a profiled step, then
+    # serving RWKV6 and full-depth gemma3-27b through the loop
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_small_models(torch, dev)
+    check_small_path(torch, dev, "rwkv6-1.6b-smoke", (("topk", 1),))
+    check_small_sync(torch, dev, "rwkv6-1.6b-smoke", ("topk_ef",), steps=1)
+    run_rwkv6_training(torch, all_kernels(), records)
+    gc.collect()
+    torch.cuda.empty_cache()
+    profile_step(torch, "profile rwkv6 async step", arch=RWKV_ARCH)
+    for arch, batch, prompt, gen in LOOP_SERVES:
+        run_loop_serve(torch, all_kernels(), arch, batch, prompt, gen)
+        profile_loop(torch, arch, batch, prompt)
     log(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -2301,9 +2496,9 @@ def main() -> int:
         "redesign (one device_ms reading each, H100 80GB HBM3 at 700.00 W, "
         "PERF.md) " + ", ".join(f"{name} {ms} ms"
                                 for name, ms in EARLIER_MS.items()))
+    extra = ("sector_bound_ms", "rwkv6_launches")
     line = [{k: records[kern.name][k] for k in keys
-             + (("sector_bound_ms",) if kern.name == "topk_cr_deposit"
-                else ())}
+             + tuple(k for k in extra if k in records[kern.name])}
             for kern in all_kernels()]
     print(json.dumps({"kernels": line}), flush=True)
     print(smi_line(), flush=True)

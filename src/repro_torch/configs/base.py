@@ -2,9 +2,10 @@
 
 The dataclass carries every field of the reference's ``ArchConfig`` so a
 parity test can compare the two field by field; the port runs the
-uniform-window attention stack (``block_type == "attn"``), dense or MoE,
-and the Mamba2 stack (``"mamba2"``) with or without the shared attention
-block.
+attention stack (``block_type == "attn"``), dense or MoE, with a uniform
+window or gemma3's local:global pattern, the Mamba2 stack (``"mamba2"``)
+with or without the shared attention block, and the RWKV6 stack
+(``"rwkv6"``).
 """
 from __future__ import annotations
 
@@ -76,6 +77,11 @@ class ArchConfig:
     def expert_d_ff(self) -> int:
         return self.moe_d_ff or self.d_ff
 
+    @property
+    def attention_free(self) -> bool:
+        return (self.block_type in (BLOCK_MAMBA2, BLOCK_RWKV6)
+                and self.shared_attn_every == 0)
+
     def layer_window_sizes(self) -> list[int]:
         """Per-layer attention window (0 = full/global) for attn stacks."""
         out = []
@@ -91,15 +97,20 @@ class ArchConfig:
 
     def param_count(self) -> int:
         """Analytic parameter count, term for term the reference's: the
-        attention stack (dense or MoE) and the Mamba2 stack with its shared
+        attention stack (dense or MoE), the Mamba2 stack with its shared
         attention block (the reference leaves out the Mamba2 dt, conv and
-        per-head leaves, and the norm scales of the shared block)."""
+        per-head leaves, and the norm scales of the shared block) and the
+        RWKV6 stack (the reference's term counts 6 d^2 + 1.5 d d_ff + 2 d a
+        layer, not the 7 d^2 + 2 d d_ff of its leaves: ``count_params``
+        counts those)."""
         d, v = self.d_model, self.vocab_size
         n = v * d if self.tie_embeddings else 2 * v * d
         hd = self.resolved_head_dim
         if self.block_type == BLOCK_MAMBA2:
             di = self.ssm_expand * d
             per_layer = d * (2 * di + 2 * self.ssm_state) + di * d + 2 * d
+        elif self.block_type == BLOCK_RWKV6:
+            per_layer = 6 * d * d + 3 * d * self.d_ff // 2 + 2 * d
         else:
             per_layer = (d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
                          + self.n_heads * hd * d + 2 * d)

@@ -145,14 +145,16 @@ class AsyncTrainStep:
     ``track_gap`` is off), ``mean_tau`` and ``nonfinite``."""
 
     def __init__(self, cfg: ArchConfig, opt, acfg: AsyncConfig,
-                 n_workers: int, specs):
+                 n_workers: int, specs, grad_accum: int = 1):
         self.cfg, self.opt, self.acfg = cfg, opt, acfg
-        self.n, self.specs = n_workers, specs
+        self.n, self.specs, self.grad_accum = n_workers, specs, grad_accum
         self._geoms = None
 
     def worker_grads(self, params, batch: dict):
-        """Gradient half: yield ``(loss, grads)`` per worker, in order."""
-        yield from worker_grads(self.cfg, params, batch, self.n)
+        """Gradient half: yield ``(loss, grads)`` per worker, in order,
+        each the mean over ``grad_accum`` microbatches of its shard."""
+        yield from worker_grads(self.cfg, params, batch, self.n,
+                                self.grad_accum)
 
     def __call__(self, params, opt_state, state: dict, batch: dict):
         return self.deliver(params, opt_state, state,
@@ -290,6 +292,7 @@ class AsyncTrainStep:
 
 
 def make_async_train_step(cfg: ArchConfig, opt, acfg: AsyncConfig,
-                          n_workers: int, specs):
-    """The bounded-staleness step over ``n_workers`` in-process workers."""
-    return AsyncTrainStep(cfg, opt, acfg, n_workers, specs)
+                          n_workers: int, specs, grad_accum: int = 1):
+    """The bounded-staleness step over ``n_workers`` in-process workers,
+    each over ``grad_accum`` microbatches of its shard."""
+    return AsyncTrainStep(cfg, opt, acfg, n_workers, specs, grad_accum)

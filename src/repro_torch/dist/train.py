@@ -45,11 +45,11 @@ def loss_fn(cfg: ArchConfig, params, batch: dict, layer_sinks=None):
     return loss, {"ce": ce.detach(), "aux_loss": aux.detach()}
 
 
-def mean_grads(cfg: ArchConfig, params, batch: dict):
-    """Loss + mean gradient tree in one backward pass: ``(loss, parts,
-    grads)``.  The layer leaves' gradients land in fresh sinks (one buffer
-    per stacked leaf, filled a layer at a time); the other leaves' come
-    from ``backward``."""
+def _grads(cfg: ArchConfig, params, batch: dict):
+    """Loss + gradient tree of one batch in one backward pass: ``(loss,
+    parts, grads)``.  The layer leaves' gradients land in fresh sinks (one
+    buffer per stacked leaf, filled a layer at a time); the other leaves'
+    come from ``backward``."""
     flat_p, td = T.flatten(params)
     sinks = T.tree_map(torch.zeros_like, params["layers"])
     for p in flat_p:
@@ -71,13 +71,40 @@ def mean_grads(cfg: ArchConfig, params, batch: dict):
     return loss.detach(), parts, T.unflatten(td, grads)
 
 
-def worker_grads(cfg: ArchConfig, params, batch: dict, n: int):
+def mean_grads(cfg: ArchConfig, params, batch: dict, grad_accum: int = 1):
+    """Loss + mean gradient tree: ``(loss, parts, grads)``.  With
+    ``grad_accum > 1`` the batch is split into that many contiguous
+    microbatches, one backward each; their losses, parts and f32
+    gradients are summed in microbatch order and then multiplied by
+    ``1 / grad_accum``, as the reference's ``mean_grads`` does.  With 1 it
+    is one backward pass over the whole batch."""
+    if grad_accum <= 1:
+        return _grads(cfg, params, batch)
+    micro = shard_batch(batch, grad_accum)
+    loss, parts, grads = _grads(cfg, params, micro[0])
+    acc = T.leaves(grads)
+    for mb in micro[1:]:
+        mloss, mparts, mgrads = _grads(cfg, params, mb)
+        loss = loss + mloss
+        parts = {k: parts[k] + mparts[k] for k in parts}
+        for a, g in zip(acc, T.leaves(mgrads)):
+            a.add_(g)
+        del mgrads
+    inv = 1.0 / grad_accum
+    for a in acc:
+        a.mul_(inv)
+    return loss * inv, {k: v * inv for k, v in parts.items()}, grads
+
+
+def worker_grads(cfg: ArchConfig, params, batch: dict, n: int,
+                 grad_accum: int = 1):
     """Yield ``(loss, grads)`` of each of ``n`` workers' contiguous batch
-    shards at ``params``, in worker order.  The generator keeps no
-    reference to what it yielded, so a consumer that drops a worker's
-    gradients frees them before the next worker's backward."""
+    shards at ``params``, in worker order, each over ``grad_accum``
+    microbatches.  The generator keeps no reference to what it yielded, so
+    a consumer that drops a worker's gradients frees them before the next
+    worker's backward."""
     for shard in shard_batch(batch, n):
-        yield mean_grads(cfg, params, shard)[::2]
+        yield mean_grads(cfg, params, shard, grad_accum)[::2]
 
 
 def tree_all_finite(leaves) -> torch.Tensor:
@@ -110,13 +137,13 @@ def guarded_update(opt, grads, opt_state, params, *, skip_nonfinite: bool):
     return params, new_state, 1.0 - finite.float()
 
 
-def make_train_step(cfg: ArchConfig, opt):
+def make_train_step(cfg: ArchConfig, opt, grad_accum: int = 1):
     """Exact-sync step ``(params, opt_state, batch) -> (params, opt_state,
-    metrics)`` on the whole batch — the perfectly-consistent baseline every
-    relaxation is compared against."""
+    metrics)`` on the whole batch (over ``grad_accum`` microbatches) — the
+    perfectly-consistent baseline every relaxation is compared against."""
 
     def step(params, opt_state, batch):
-        loss, parts, grads = mean_grads(cfg, params, batch)
+        loss, parts, grads = mean_grads(cfg, params, batch, grad_accum)
         flat_g = T.leaves(grads)
         metrics = {"loss": loss, "grad_norm": global_norm(flat_g), **parts}
         _, opt_state, _ = guarded_update(opt, flat_g, opt_state,
@@ -165,16 +192,21 @@ class ElasticTrainStep:
     applies the optimizer, so that a test can feed it gradients from
     elsewhere.  Params, optimizer state and sync state are updated in
     place.  ``static_phase`` is the elastic static gate's phase, fixed when
-    the step is built (as the reference compiles one program a phase)."""
+    the step is built (as the reference compiles one program a phase);
+    each worker's gradient is the mean over ``grad_accum`` microbatches of
+    its shard."""
 
     def __init__(self, cfg: ArchConfig, opt, scfg: SyncConfig,
-                 n_workers: int, specs, static_phase: int = 0):
+                 n_workers: int, specs, static_phase: int = 0,
+                 grad_accum: int = 1):
         self.cfg, self.opt, self.scfg = cfg, opt, scfg
         self.n, self.specs, self.static_phase = n_workers, specs, static_phase
+        self.grad_accum = grad_accum
 
     def worker_grads(self, params, batch: dict):
         """Gradient half: yield ``(loss, grads)`` per worker, in order."""
-        yield from worker_grads(self.cfg, params, batch, self.n)
+        yield from worker_grads(self.cfg, params, batch, self.n,
+                                self.grad_accum)
 
     def __call__(self, params, opt_state, state: dict, batch: dict):
         return self.sync_update(params, opt_state, state,
@@ -199,10 +231,12 @@ class ElasticTrainStep:
 
 
 def make_elastic_train_step(cfg: ArchConfig, opt, scfg: SyncConfig,
-                            n_workers: int, specs, static_phase: int = 0):
-    """The relaxed-sync step over ``n_workers`` in-process workers
-    (gradient accumulation is not ported: one microbatch a worker)."""
-    return ElasticTrainStep(cfg, opt, scfg, n_workers, specs, static_phase)
+                            n_workers: int, specs, static_phase: int = 0,
+                            grad_accum: int = 1):
+    """The relaxed-sync step over ``n_workers`` in-process workers, each
+    over ``grad_accum`` microbatches of its shard."""
+    return ElasticTrainStep(cfg, opt, scfg, n_workers, specs, static_phase,
+                            grad_accum)
 
 
 # ---------------------------------------------------------------------------

@@ -9,9 +9,14 @@ the dense legacy loop or the continuous-batching engine.
     python -m repro_torch.launch.serve --arch qwen3-1.7b-smoke \\
         --engine loop --prompt-len 32 --gen 16 --batch 4
 
-    # the Mamba2 hybrid serves through the loop only (no paged engine)
+    # the Mamba2 hybrid, RWKV6 and gemma3's local:global stack serve
+    # through the loop only (the paged engine raises NotImplementedError)
     python -m repro_torch.launch.serve --arch zamba2-7b-smoke \\
         --engine loop --prompt-len 32 --gen 16 --batch 4
+    python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
+        --engine loop --prompt-len 4096 --gen 32 --batch 4
+    python -m repro_torch.launch.serve --arch gemma3-27b \\
+        --engine loop --prompt-len 2048 --gen 16 --batch 1
 
 ``--device`` defaults to ``cuda``; without a card the launcher raises unless
 ``--device cpu`` is given.  Weights are random, drawn from a

@@ -6,11 +6,16 @@ without its checkpointing, fault injection and tensor parallelism).
         --batch 4 --seq 256 --steps 4
     python -m repro_torch.launch.train --arch qwen3-1.7b --sync topk_ef \\
         --topk-ratio 0.0625 --workers 2 --batch 4 --seq 256 --steps 4
+    python -m repro_torch.launch.train --arch rwkv6-1.6b --sync async \\
+        --compressor topk --topk-ratio 0.0625 --tau-max 2 --workers 2 \\
+        --batch 4 --seq 256 --steps 2
 
 ``--sync exact`` is the exact step on the whole batch; ``topk_ef``,
 ``onebit_ef`` and ``elastic`` (norm gate, ``--beta``, ``--budget-b``) are
 the synchronous strategies of `repro_torch.core.scheduler`; ``async`` is
-the bounded-staleness engine.
+the bounded-staleness engine, where ``--crash-subst`` renormalizes the
+mass of crashed or delayed workers.  A step's line is printed every
+``--log-every`` steps; ``main`` returns every step's metrics.
 
 ``--workers N`` runs N data-parallel workers in this process (each takes a
 contiguous batch shard).  ``--device`` defaults to ``cuda``; without a card
@@ -44,6 +49,9 @@ def _parse(argv=None):
                     choices=["none", "topk", "onebit"])
     ap.add_argument("--ef", action=argparse.BooleanOptionalAction,
                     default=True, help="error feedback for --compressor")
+    ap.add_argument("--crash-subst", action="store_true",
+                    help="async: renormalize dead-worker mass so survivors "
+                         "keep the full step size (paper crash_subst)")
     ap.add_argument("--overlap", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="fused compact-wire delivery (deposit kernels); "
@@ -51,6 +59,7 @@ def _parse(argv=None):
     ap.add_argument("--workers", type=int, default=1,
                     help="in-process data-parallel workers")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     return ap.parse_args(argv)
 
@@ -127,7 +136,7 @@ def main(argv=None) -> list[dict]:
             tau_max=args.tau_max, schedule=args.async_schedule,
             compressor=args.compressor, error_feedback=args.ef,
             topk_ratio=args.topk_ratio, horizon=horizon, seed=args.seed,
-            overlap=args.overlap)
+            crash_subst=args.crash_subst, overlap=args.overlap)
         state = init_async_state(acfg, args.workers, params, specs)
         run = make_async_train_step(cfg, opt, acfg, args.workers, specs)
 
@@ -146,6 +155,8 @@ def main(argv=None) -> list[dict]:
                "stale_gap2": float(metrics.get("stale_gap2", 0.0)),
                "mean_tau": float(metrics.get("mean_tau", 0.0))}
         history.append(row)
+        if t % args.log_every:
+            continue
         # gap2/a2 as the reference prints it: the elastic gap, or the
         # bounded-staleness engine's stale gap
         gap = row["stale_gap2"] if args.sync == "async" \

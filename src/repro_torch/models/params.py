@@ -14,11 +14,13 @@ Serving holds every matrix in the compute dtype
 (:func:`init_serving_params`): each use of a matrix casts it to bf16 first,
 so bf16-held leaves give bitwise the same operands as f32-held ones, at
 half the memory.  Vectors (norm scales; Mamba2's ``a_log``, ``dt_bias``,
-``d_skip`` and conv biases) stay f32.
+``d_skip`` and conv biases; RWKV6's ``decay_bias``) stay f32, and so does a
+matrix that the model uses in f32 (``serve_f32``: RWKV6's ``bonus_u``).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -38,6 +40,7 @@ class ParamDef:
     init: str = "normal"          # normal | zeros | ones | constant
     scale: float | None = None    # normal: stddev (None => 1/sqrt fan_in)
     constant: float = 0.0
+    serve_f32: bool = False       # held f32 for serving (used in f32)
 
     def __post_init__(self):
         if len(self.shape) != len(self.axes):
@@ -94,9 +97,10 @@ def init_params(defs, gen: torch.Generator, device=None):
 
 
 def _is_matrix(d: ParamDef) -> bool:
-    """A leaf of two or more dims per layer (not a norm scale)."""
+    """A leaf of two or more dims per layer (not a norm scale) that the
+    model casts to the compute dtype at each use."""
     per_layer = len(d.shape) - (d.axes[:1] == ("layers",))
-    return per_layer >= 2
+    return per_layer >= 2 and not d.serve_f32
 
 
 def init_serving_params(defs, gen: torch.Generator, device=None):
@@ -118,6 +122,11 @@ def init_serving_params(defs, gen: torch.Generator, device=None):
         return out
 
     return T.tree_map(draw, defs)
+
+
+def count_params(defs) -> int:
+    """Entries in a ParamDef tree (the reference's ``count_params``)."""
+    return sum(math.prod(d.shape) for d in T.leaves(defs))
 
 
 def params_from_jax(tree_of_numpy, device="cpu"):

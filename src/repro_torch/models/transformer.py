@@ -1,28 +1,42 @@
-"""Model assembly (counterpart of ``repro.models.transformer``) for two
-stacks: the uniform-window attention stack, dense or MoE, and the Mamba2
-stack with zamba2's shared attention block.  Each has the training
-forward and the serving ``prefill`` / ``decode_step`` over dense caches
-(for attention, the paged engine's oracle).
+"""Model assembly (counterpart of ``repro.models.transformer``) for three
+stacks: the attention stack, dense or MoE, with a uniform window or
+gemma3's local:global pattern; the Mamba2 stack with zamba2's shared
+attention block; and the RWKV6 stack.  Each has the training forward and
+the serving ``prefill`` / ``decode_step`` over dense caches (for
+attention, the paged engine's oracle).
 
 Parameters keep the reference's stacked layout (leading ``n_layers`` dim
-on every layer leaf); the stack loops over layers in Python.  Each layer's
-slice of a stacked leaf is taken by :class:`_LayerSlice`, whose backward
-writes that layer's gradient straight into row ``i`` of a preallocated
-gradient of the whole leaf (a *sink*).  Taking the slices with ``unbind``
-instead would hold all 28 per-layer gradients until the last arrives and
-then stack them into a new tensor: two copies of every layer gradient at
-once, about 6.4 GB more at the peak of the full-width step.
+on every layer leaf); the stack loops over layers in Python, so each
+layer takes its own window from ``cfg.layer_window_sizes()`` and the
+reference's grouping of gemma3's layers (a ``lax.scan`` needs a static
+window) has no counterpart.  Each layer's slice of a stacked leaf is
+taken by :class:`_LayerSlice`, whose backward writes that layer's
+gradient straight into row ``i`` of a preallocated gradient of the whole
+leaf (a *sink*).  Taking the slices with ``unbind`` instead would hold all
+28 per-layer gradients until the last arrives and then stack them into a
+new tensor: two copies of every layer gradient at once, about 6.4 GB more
+at the peak of the full-width step.
+
+Under autograd each RWKV6 layer runs under ``torch.utils.checkpoint``
+(the counterpart of the reference's default ``RunFlags(remat=True)``):
+its WKV keeps three (B, C, C, H, N) f32 tensors a chunk for backward,
+about 0.8 GB a layer of full-width rwkv6-1.6b at 2 sequences of 256, so
+the layer's activations are recomputed in backward instead of kept for
+all 24 layers.  The slices are taken outside the checkpointed function,
+so each sink row is written once, by the recomputed graph's backward.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import (BLOCK_ATTN, BLOCK_MAMBA2,
+from repro_torch.configs.base import (BLOCK_ATTN, BLOCK_MAMBA2, BLOCK_RWKV6,
                                       FRONTEND_NONE, ArchConfig)
 from repro_torch import tree as T
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
+from repro_torch.models import rwkv6 as R6
 from repro_torch.models.layers import (COMPUTE_DTYPE, attention_block,
                                        attention_defs, mlp_block, mlp_defs,
                                        rmsnorm, rmsnorm_def)
@@ -30,14 +44,11 @@ from repro_torch.models.params import ParamDef, stack_defs
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    mamba = cfg.block_type == BLOCK_MAMBA2
-    attn = (cfg.block_type == BLOCK_ATTN and not cfg.shared_attn_every
-            and len(set(cfg.layer_window_sizes())) <= 1)
-    if not (mamba or attn) or cfg.frontend != FRONTEND_NONE:
+    if cfg.frontend != FRONTEND_NONE:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs only the uniform-window attention "
-            "stack (dense or MoE) and the Mamba2 stack (optionally with a "
-            "shared attention block)")
+            f"{cfg.name}: the {cfg.frontend} frontend is not ported")
+    if cfg.block_type not in (BLOCK_ATTN, BLOCK_MAMBA2, BLOCK_RWKV6):
+        raise ValueError(f"{cfg.name}: unknown block {cfg.block_type!r}")
 
 
 def model_defs(cfg: ArchConfig) -> dict:
@@ -52,6 +63,8 @@ def model_defs(cfg: ArchConfig) -> dict:
         defs["lm_head"] = ParamDef((d, v), ("embed", "vocab"))
     if cfg.block_type == BLOCK_MAMBA2:
         layer = {"ln": rmsnorm_def(d), "mamba": M2.mamba2_defs(cfg)}
+    elif cfg.block_type == BLOCK_RWKV6:
+        layer = R6.rwkv6_defs(cfg)
     else:
         layer = {
             "ln_attn": rmsnorm_def(d),
@@ -114,11 +127,12 @@ def _layer_slices(stacked, n_layers: int, sinks=None) -> list[dict]:
 
 def attn_stack(cfg: ArchConfig, stacked, x, positions, sinks=None, *,
                kv_caches=None, cache_index=None, collect_kv=False):
-    """Run the uniform attention stack.  Returns ``(x, aux_sum, kvs)``:
+    """Run the attention stack, layer ``i`` with its own window
+    ``cfg.layer_window_sizes()[i]``.  Returns ``(x, aux_sum, kvs)``:
     ``kvs`` is the stacked (L, B, S, K, D) ``(k, v)`` of every layer with
     ``collect_kv``, the caches ``kv_caches`` (each (L, B, T, K, D),
     written in place at ``cache_index``) when decoding, else None."""
-    window = cfg.layer_window_sizes()[0] if cfg.n_layers else 0
+    windows = cfg.layer_window_sizes()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     kvs = kv_caches
     for i, lp in enumerate(_layer_slices(stacked, cfg.n_layers, sinks)):
@@ -126,7 +140,7 @@ def attn_stack(cfg: ArchConfig, stacked, x, positions, sinks=None, *,
                                                 kv_caches[1][i])
         h, kv = attention_block(lp["attn"], cfg,
                                 rmsnorm(x, lp["ln_attn"], cfg.norm_eps),
-                                positions, window=window, kv_cache=cache,
+                                positions, window=windows[i], kv_cache=cache,
                                 cache_index=cache_index)
         if collect_kv:
             if kvs is None:
@@ -161,15 +175,33 @@ def _shared_attn(cfg: ArchConfig, sp, x, positions, cache=None,
                                             cfg.norm_eps)), kv
 
 
+def _ssm_layer(cfg: ArchConfig, lp, x, st):
+    """One Mamba2 or RWKV6 layer with its residual: ``(x, new state)``.
+    The RWKV6 block applies its own pre-norms; under autograd it runs
+    under ``checkpoint``."""
+    if cfg.block_type == BLOCK_RWKV6:
+        if torch.is_grad_enabled():
+            h, new_st = checkpoint(R6.rwkv6_block, lp, cfg, x, st,
+                                   use_reentrant=False)
+        else:
+            h, new_st = R6.rwkv6_block(lp, cfg, x, st)
+        return x + h, new_st
+    h, new_st = M2.mamba2_block(lp["mamba"], cfg,
+                                rmsnorm(x, lp["ln"], cfg.norm_eps), state=st)
+    return x + h, new_st
+
+
 def ssm_stack(cfg: ArchConfig, params, x, positions, sinks=None, *,
               states=None, attn_caches=None, cache_index=None,
               collect_len: int = 0):
-    """Run the Mamba2 stack, layer by layer.  With ``shared_attn_every``
-    (zamba2) the shared block runs before layers 0, every, 2 every, ...:
-    ``ceil(n_layers / every)`` invocations, each with its own KV cache.
+    """Run the Mamba2 or RWKV6 stack, layer by layer.  With
+    ``shared_attn_every`` (zamba2) the shared block runs before layers 0,
+    every, 2 every, ...: ``ceil(n_layers / every)`` invocations, each with
+    its own KV cache.
 
     Prefill (``collect_len > 0``): returns the per-layer states stacked
-    ``{"conv_x", "conv_bc", "ssm"}`` (L, ...) and the invocations' caches
+    (L, ...): Mamba2's ``{"conv_x", "conv_bc", "ssm"}``, RWKV6's
+    ``{"tm_last", "cm_last", "wkv"}``; and the invocations' caches
     ``(k, v)``, each (n_seg, B, collect_len, K, D) in the compute dtype
     with the prompt's keys and values in its first S positions.  Decode
     (``states`` and ``attn_caches`` given, x (B, 1, d)): both are updated
@@ -196,10 +228,7 @@ def ssm_stack(cfg: ArchConfig, params, x, positions, sinks=None, *,
                 for buf, a in zip(kvs, kv):
                     buf[seg, :, :a.shape[1]].copy_(a)
         st = None if states is None else {k: a[i] for k, a in states.items()}
-        h, new_st = M2.mamba2_block(lp["mamba"], cfg,
-                                    rmsnorm(x, lp["ln"], cfg.norm_eps),
-                                    state=st)
-        x = x + h
+        x, new_st = _ssm_layer(cfg, lp, x, st)
         if collect_len and sts is None:
             sts = {k: torch.empty((cfg.n_layers, *a.shape), dtype=a.dtype,
                                   device=a.device)
@@ -216,7 +245,7 @@ def forward(cfg: ArchConfig, params, batch: dict, layer_sinks=None):
     leaves' gradients on backward (see :class:`_LayerSlice`)."""
     x = embed_input(cfg, params, batch)
     positions = torch.arange(x.shape[1], device=x.device)
-    if cfg.block_type == BLOCK_MAMBA2:
+    if cfg.block_type != BLOCK_ATTN:
         x, _, _ = ssm_stack(cfg, params, x, positions, layer_sinks)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     else:
@@ -232,19 +261,22 @@ def forward(cfg: ArchConfig, params, batch: dict, layer_sinks=None):
 def init_cache(cfg: ArchConfig, batch_size: int, max_len: int,
                device=None) -> dict:
     """Zeroed serving cache.  Attention stack: ``{"pos": 0, "kv": (k,
-    v)}``, each (L, B, max_len, K, D) in the compute dtype.  Mamba2 stack:
-    ``{"pos": 0, "state": {...}}`` of f32 zeros stacked over layers, and
-    with a shared attention block ``"attn_kv"``, each (n_seg, B, max_len,
-    K, D)."""
+    v)}``, each (L, B, max_len, K, D) in the compute dtype.  Mamba2 and
+    RWKV6 stacks: ``{"pos": 0, "state": {...}}`` of zeros stacked over
+    layers (the dtypes of the block's own initial state), and with a
+    shared attention block ``"attn_kv"``, each (n_seg, B, max_len, K,
+    D)."""
     def kv(n):
         shape = (n, batch_size, max_len, cfg.n_kv_heads,
                  cfg.resolved_head_dim)
         return tuple(torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device)
                      for _ in range(2))
 
-    if cfg.block_type != BLOCK_MAMBA2:
+    if cfg.block_type == BLOCK_ATTN:
         return {"pos": 0, "kv": kv(cfg.n_layers)}
-    init = M2.mamba2_init_state(cfg, batch_size, device)
+    init = (R6.rwkv6_init_state(cfg, batch_size, device)
+            if cfg.block_type == BLOCK_RWKV6
+            else M2.mamba2_init_state(cfg, batch_size, device))
     cache = {"pos": 0, "state": {
         k: torch.zeros((cfg.n_layers, *a.shape), dtype=a.dtype,
                        device=device) for k, a in init.items()}}
@@ -257,11 +289,12 @@ def prefill(cfg: ArchConfig, params, batch: dict, max_len: int):
     """Run the prompt; returns (last-token logits (B, 1, V), cache) with the
     KV caches padded to ``max_len`` positions, in the compute dtype (the
     Mamba2 stack: its per-layer states, conv carries in the compute dtype
-    and SSM states f32, and its shared block's caches)."""
+    and SSM states f32, and its shared block's caches; the RWKV6 stack:
+    its per-layer states, all f32)."""
     x = embed_input(cfg, params, batch)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)
-    if cfg.block_type == BLOCK_MAMBA2:
+    if cfg.block_type != BLOCK_ATTN:
         x, states, kvs = ssm_stack(cfg, params, x, positions,
                                    collect_len=max_len)
         cache = {"pos": s, "state": states}
@@ -283,7 +316,7 @@ def decode_step(cfg: ArchConfig, params, cache: dict, tokens):
     x = params["embed"][tokens.long()].to(COMPUTE_DTYPE)
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.long,
                            device=x.device)
-    if cfg.block_type == BLOCK_MAMBA2:
+    if cfg.block_type != BLOCK_ATTN:
         x, _, _ = ssm_stack(cfg, params, x, positions,
                             states=cache["state"],
                             attn_caches=cache.get("attn_kv"),

@@ -43,7 +43,8 @@ def test_launcher_cpu_run_prints_finite_losses():
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu",
          "--arch", "qwen3-1.7b-smoke", "--sync", "async", "--compressor",
-         "topk", "--steps", "3", "--seq", "32", "--batch", "4"],
+         "topk", "--steps", "3", "--seq", "32", "--batch", "4",
+         "--log-every", "1"],
         env=_env(), capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr[-2000:]
     losses = [float(line.split()[3]) for line in proc.stdout.splitlines()

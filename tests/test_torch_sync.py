@@ -334,7 +334,7 @@ def test_launcher_cpu_runs_each_sync_strategy(sync, capsys):
     from repro_torch.launch import train
     history = train.main(["--device", "cpu", "--arch", "qwen3-1.7b-smoke",
                           "--sync", sync, "--workers", "2", "--steps", "3",
-                          "--seq", "32", "--batch", "4"])
+                          "--seq", "32", "--batch", "4", "--log-every", "1"])
     assert len(history) == 3
     for row in history:
         assert np.isfinite(row["loss"]) and abs(row["loss"]) < 1e3
