@@ -136,11 +136,45 @@ Phases (any failure exits non-zero):
     2048, 16 tokens, greedy; phases 27 and 28 launch no kernel of the
     port, check every step's logits finite and log prefill seconds,
     decode steps/s and the peak memory, then profile the model's prefill
-    and one decode step (device time by group, busy share).
+    and one decode step (device time by group, busy share);
+29. small inputs, card against CPU: ``moonshot-v1-16b-a3b-smoke``,
+    ``grok-1-314b-smoke``, ``internvl2-2b-smoke`` and
+    ``musicgen-large-smoke`` (on a ``synthetic_batch`` of 2 x 64 with the
+    stubs' embeddings: forward logits and aux, prefill and 4 decode
+    steps), in f32 compute and bf16;
+    ``zamba2-7b-smoke`` with 2 workers through phase 3's and phase 21's
+    checks (one fed async top-k delivery, one ``topk_ef`` step, its whole
+    step through K10 under autograd); K10 under autograd at zamba2
+    training's shape (2, 256, 64 heads of 112, N 64) in bf16: the forward
+    bitwise the no-grad launch, the gradients against ``ssd_plain``'s;
+30. moonshot-v1-16b-a3b training at full width, cut to 2 of its 48 layers
+    (13 leaves, 1,812.2 M entries; ``w_gate``, ``w_up``, ``w_down``
+    369,098,752 each) through ``repro_torch.launch.train.main(argv,
+    cfg=...)``: 2 async top-k steps at tau_max 1 (exactly 52 ``topk_ef``
+    and 26 ``topk_cr_deposit``), 2 ``--sync topk_ef`` steps (52 and 26
+    ``topk_cr_reduce``), a profiled ``topk_ef`` step with the
+    ``moe_dispatch`` range grouped apart;
+31. zamba2-7b training at full width, cut to 12 of its 81 layers (the
+    shared block twice; 27 leaves): 2 async top-k steps at tau_max 2
+    (exactly 108 ``topk_ef``, 54 ``topk_cr_deposit``, 48
+    ``ssd_chunked``: K10 once a Mamba2 layer a worker a step, in the
+    forward only), 2 ``topk_ef`` steps (108, 54 ``topk_cr_reduce``, 48),
+    a profiled async step;
+32. serving at full width through ``repro_torch.launch.serve.main``:
+    moonshot-v1-16b-a3b at full depth and grok-1-314b cut to 6 of 64
+    layers through ``--engine continuous`` with phase 14's six prompts
+    (full attention: no kernel of the port), a profiled moonshot decode
+    step with the ``attend_full`` range grouped apart; internvl2-2b (batch
+    4, prompt 4096 with 256 patch embeddings a row) and musicgen-large
+    (batch 4, prompt 2048 of frame embeddings) at full depth through
+    ``--engine loop``, 16 tokens each, no kernel of the port; every
+    logit finite, every request served and page freed, every peak within
+    90% of the card.
 
-The last three lines of standard output are the kernels' JSON record, the
-card's name and power limit, and the result ``{"ok": true, "device":
-{...}}``.
+The last three lines of standard output are the kernels' JSON record (K1,
+K2 and K4 also carry ``rwkv6_launches``, ``moonshot_launches`` and
+``zamba2_launches``, K10 ``zamba2_launches``), the card's name and power
+limit, and the result ``{"ok": true, "device": {...}}``.
 """
 import gc
 import json
@@ -274,13 +308,14 @@ def require(cond: bool, what: str) -> None:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def model_leaves(arch: str) -> int:
-    """Stacked parameter leaves of ``arch``: one K1 call a leaf a worker
-    and one K2 or K4 call a leaf a step."""
+def model_leaves(arch, cfg=None) -> int:
+    """Stacked parameter leaves of ``arch`` (or of ``cfg``, an
+    ``ArchConfig``): one K1 call a leaf a worker and one K2 or K4 call a
+    leaf a step."""
     from repro_torch import tree as T
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as TF
-    return len(T.leaves(TF.model_defs(get_config(arch))))
+    return len(T.leaves(TF.model_defs(cfg or get_config(arch))))
 
 
 def _topk_check(torch, topk_ef, topk_ef_plain, g, e, k):
@@ -558,24 +593,27 @@ def check_small_path(torch, dev, arch="qwen3-1.7b-smoke",
 # ---------------------------------------------------------------------------
 
 def run_path(torch, kernels, compressor: str, steps: int,
-             arch: str = "qwen3-1.7b"):
+             arch: str = "qwen3-1.7b", tau_max: int = 2, cfg=None):
     """Drive the main path through the trainer's entry point, with the
     launch counters zeroed just before; returns the counts after it.  The
-    peak memory must stay within 90% of the card (with ``track_gap`` on)."""
+    peak memory must stay within 90% of the card (with ``track_gap`` on).
+    ``cfg`` (``arch`` cut in depth) overrides ``--arch``."""
     from repro_torch.launch import train
 
     argv = ["--arch", arch, "--sync", "async", "--compressor",
             compressor, "--topk-ratio", str(TOPK_RATIO), "--ef", "--overlap",
-            "--tau-max", "2", "--async-schedule", "uniform", "--workers", "2",
-            "--batch", "4", "--seq", "256", "--steps", str(steps),
-            "--device", "cuda", "--seed", "0", "--log-every", "1"]
-    log(f"path: python -m repro_torch.launch.train {' '.join(argv)}")
+            "--tau-max", str(tau_max), "--async-schedule", "uniform",
+            "--workers", "2", "--batch", "4", "--seq", "256", "--steps",
+            str(steps), "--device", "cuda", "--seed", "0", "--log-every",
+            "1"]
+    log(f"path: python -m repro_torch.launch.train {' '.join(argv)}"
+        + (f" (cfg: n_layers {cfg.n_layers})" if cfg is not None else ""))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     for k in kernels:
         k.launches = 0
     t0 = time.perf_counter()
-    history = train.main(argv)
+    history = train.main(argv, cfg=cfg)
     wall = time.perf_counter() - t0
     counts = {k.name: k.launches for k in kernels}
     peak = torch.cuda.max_memory_allocated()
@@ -593,15 +631,17 @@ def run_path(torch, kernels, compressor: str, steps: int,
 
 
 def profile_step(torch, title: str = "profile step", sync=None,
-                 arch: str = "qwen3-1.7b") -> None:
-    """Where a training step's device time goes: full-width ``arch`` as
-    phase 4 (``sync=None``: the async top-k step) or phase 22 (``sync``:
-    that synchronous strategy, 2 workers) builds it, through the same
-    public functions; one warm-up step, then one step under
-    ``torch.profiler``; prints device time by kernel group (kernels that a
-    torch op inside a ``wkv6_chunked`` range launched, the RWKV6 WKV
-    loop's forward and its recompute, form their own group) and the
-    device-busy share of the step's wall time."""
+                 arch: str = "qwen3-1.7b", cfg=None, groups=PROFILE_GROUPS,
+                 range_name: str = "wkv6_chunked",
+                 range_group: str = "WKV6 forward") -> None:
+    """Where a training step's device time goes: full-width ``arch`` (or
+    ``cfg``) as phase 4 (``sync=None``: the async top-k step, tau_max 2)
+    or phase 22 (``sync``: that synchronous strategy, 2 workers) builds it,
+    through the same public functions; one warm-up step, then one step
+    under ``torch.profiler``; prints device time by kernel group (kernels
+    that a torch op inside a ``range_name`` range launched form
+    ``range_group``: by default the RWKV6 WKV loop's forward and its
+    recompute) and the device-busy share of the step's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import tree as T
@@ -618,7 +658,7 @@ def profile_step(torch, title: str = "profile step", sync=None,
     from repro_torch.optim import constant, momentum
 
     dev = torch.device("cuda")
-    cfg = get_config(arch)
+    cfg = cfg or get_config(arch)
     defs = TF.model_defs(cfg)
     specs = param_specs(defs)
     params = init_params(defs, torch.Generator(device=dev).manual_seed(0),
@@ -646,30 +686,29 @@ def profile_step(torch, title: str = "profile step", sync=None,
                                            batches[1])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    groups, per_name = device_groups(torch, prof, PROFILE_GROUPS,
-                                     "wkv6_chunked", "WKV6 forward")
-    log_groups(f"{title} ({arch}), loss {float(m['loss']):.6f}", wall,
-               groups, per_name)
+    found, per_name = device_groups(torch, prof, groups, range_name,
+                                    range_group)
+    log_groups(f"{title} ({arch}, {cfg.n_layers} layers), loss "
+               f"{float(m['loss']):.6f}", wall, found, per_name)
     # K1 compresses each leaf for each of the 2 workers; K2 or K4 takes
     # each leaf's 2 messages in one call
-    k1 = groups.get("K1 topk_ef", (0.0, 0))[1]
+    k1 = found.get("K1 topk_ef", (0.0, 0))[1]
     calls = 2 * n_leaves
     log(f"  K1 device kernels a call: {k1 / calls:.2f} ({k1} in {calls} "
         f"calls)")
     require(0 < k1 <= 5 * calls, f"K1 launched {k1} kernels in {calls} "
             "calls")
     name = "K2 topk_cr_deposit" if sync is None else "K4 topk_cr_reduce"
-    us, count = groups.get(name, (0.0, 0))
+    us, count = found.get(name, (0.0, 0))
     log(f"  {name}: {us / 1e3:.3f} ms in {count} device kernels, "
         f"{count / n_leaves:.2f} a call ({n_leaves} calls)")
-    pats = dict(PROFILE_GROUPS)[name]
     for key, (kus, kcount) in per_name.items():
-        if any(p in key for p in pats):
+        if any(p in key for p in dict(groups)[name]):
             log(f"    {kus / 1e3:9.3f} ms  x{kcount:<4d} {key[:90]}")
     require(count > 0, f"{name} ran no device kernel")
-    if cfg.block_type == "rwkv6":
-        require(groups.get("WKV6 forward", (0.0, 0))[1] > 0,
-                "no device kernel inside the wkv6_chunked range")
+    if cfg.block_type == "rwkv6" or cfg.is_moe or cfg.shared_attn_every:
+        require(found.get(range_group, (0.0, 0))[1] > 0,
+                f"no device kernel inside the {range_name} range")
 
 
 # ---------------------------------------------------------------------------
@@ -1471,27 +1510,32 @@ def check_small_serve(torch, dev):
         set_matmul_precision(torch, False)
 
 
-def serve_argv():
-    return ["--arch", "mixtral-8x7b", "--engine", "continuous",
+def serve_argv(arch: str = "mixtral-8x7b"):
+    return ["--arch", arch, "--engine", "continuous",
             "--prompt-lens", ",".join(map(str, SERVE_PROMPTS)),
             "--gen", str(SERVE_GEN), "--batch", "4", "--page-size", "16",
             "--device", "cuda", "--seed", "0"]
 
 
-def run_serve(torch, kernels):
-    """Phase 14: the serving path through its launcher's entry point, with
-    the launch counters zeroed just before; returns (counts, result)."""
+def run_serve(torch, kernels, arch: str = "mixtral-8x7b",
+              layers=SERVE_LAYERS, per_step=("swa_decode_attention",)):
+    """Phases 14 and 32: ``arch`` (cut to ``layers``, None: its full
+    depth) serving ``SERVE_PROMPTS`` through its launcher's entry point
+    with the continuous engine, the launch counters zeroed just before:
+    each kernel of ``per_step`` launched once a layer a decode step, no
+    other kernel of the port; returns (counts, result)."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
 
-    cfg = dataclasses.replace(get_config("mixtral-8x7b"),
-                              n_layers=SERVE_LAYERS)
-    argv = serve_argv()
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, n_layers=layers or cfg.n_layers)
+    argv = serve_argv(arch)
     log(f"serve path: python -m repro_torch.launch.serve {' '.join(argv)} "
-        f"(mixtral-8x7b with n_layers {SERVE_LAYERS}; "
-        f"{cfg.param_count()} parameters)")
+        f"({arch} with n_layers {cfg.n_layers}, windows "
+        f"{sorted(set(cfg.layer_window_sizes()))}; {cfg.param_count()} "
+        f"parameters)")
     total = torch.cuda.get_device_properties(0).total_memory
     left = torch.cuda.memory_allocated()
     log(f"serve path: memory allocated before loading {left} bytes")
@@ -1506,7 +1550,8 @@ def run_serve(torch, kernels):
     toks = out["tokens"]
     decode_s = out["wall_s"] - sum(out["prefill_s"])
     n_tok = sum(len(t) for t in toks)
-    log(f"serve path: {len(toks)} requests, {engine.steps} decode steps "
+    log(f"serve path {arch}: {len(toks)} requests, {engine.steps} decode "
+        f"steps "
         f"(scheduler clock {out['scheduler'].clock}), wall {out['wall_s']:.3f}"
         f" s; prefill s per request "
         f"{[round(x, 4) for x in out['prefill_s']]}; decode "
@@ -1514,12 +1559,10 @@ def run_serve(torch, kernels):
         f"{n_tok / out['wall_s']:.3f} tokens/s end to end; peak memory "
         f"{peak} bytes ({peak / total:.3f} of {total}); launches "
         f"{json.dumps(counts)}")
-    require(counts["swa_decode_attention"] == SERVE_LAYERS * engine.steps,
-            f"swa_decode_attention launched {counts['swa_decode_attention']}"
-            f" times, not {SERVE_LAYERS} x {engine.steps}")
-    require(all(c == 0 for n, c in counts.items()
-                if n != "swa_decode_attention"),
-            "a kernel off the serving path was launched")
+    for name, count in counts.items():
+        want = cfg.n_layers * engine.steps if name in per_step else 0
+        require(count == want, f"serving {arch}: {name} launched {count} "
+                f"times, not {want}")
     require(len(toks) == len(SERVE_PROMPTS) and all(
         len(t) == SERVE_GEN and int(t.min()) >= 0
         and int(t.max()) < cfg.vocab_size for t in toks),
@@ -1584,12 +1627,14 @@ def log_groups(title, wall, groups, per_name) -> None:
         log(f"  {us / 1e3:9.3f} ms  x{count:<5d} {name[:100]}")
 
 
-def profile_serve(torch, engine) -> None:
-    """Phase 15: one steady decode step of the phase-14 engine (4 active
-    slots, the same window gather) under torch.profiler.  Device kernels
-    launched by a torch op inside the ``moe_dispatch`` range (routing and
-    the dispatch product) form their own group; the rest are grouped by
-    name."""
+def profile_serve(torch, engine, range_name: str = "moe_dispatch",
+                  range_group: str = "MoE dispatch") -> None:
+    """Phase 15 (and 32): one steady decode step of the engine (4 active
+    slots of 500 tokens, the same gather) under torch.profiler.  Device
+    kernels launched by a torch op inside the ``range_name`` range (by
+    default routing and the dispatch product; ``attend_full``: the full
+    attention's page gather and scores) form their own group; the rest are
+    grouped by name."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -1608,8 +1653,9 @@ def profile_serve(torch, engine) -> None:
         wall = time.perf_counter() - t0
     for rid in range(4):
         engine.finish(100 + rid)
-    log_groups("profile serve decode step", wall, *device_groups(
-        torch, prof, SERVE_GROUPS, "moe_dispatch", "MoE dispatch"))
+    log_groups(f"profile serve decode step ({engine.cfg.name}, "
+               f"{engine.cfg.n_layers} layers)", wall, *device_groups(
+                   torch, prof, SERVE_GROUPS, range_name, range_group))
 
 
 # ---------------------------------------------------------------------------
@@ -2199,28 +2245,31 @@ def check_small_sync(torch, dev, arch="qwen3-1.7b-smoke", syncs=SYNC_STEPS,
 
 
 def run_sync_path(torch, kernels, sync: str, arch: str = "qwen3-1.7b",
-                  steps: int = 0):
-    """Phase 22 (and 25): full-width ``arch`` through the trainer's entry
-    point with ``--sync sync`` for ``steps`` (default ``SYNC_STEPS``), the
-    launch counters zeroed just before; returns the counts after it.
-    Every loss and gap finite, peak memory within 90% of the card, and
-    each kernel launched exactly as often as the leaves say."""
+                  steps: int = 0, cfg=None, also=None):
+    """Phase 22 (and 25, 30, 31): full-width ``arch`` (or ``cfg``, cut in
+    depth) through the trainer's entry point with ``--sync sync`` for
+    ``steps`` (default ``SYNC_STEPS``), the launch counters zeroed just
+    before; returns the counts after it.  Every loss and gap finite, peak
+    memory within 90% of the card, and each kernel launched exactly as
+    often as the leaves say (``also``: kernel name -> launches of the
+    forward's own kernels, K10 on the Mamba2 stack)."""
     from repro_torch.launch import train
 
     steps = steps or SYNC_STEPS[sync]
-    n_leaves = model_leaves(arch)
+    n_leaves = model_leaves(arch, cfg)
     argv = ["--arch", arch, "--sync", sync, "--topk-ratio",
             str(TOPK_RATIO), "--workers", "2", "--batch", "4", "--seq",
             "256", "--steps", str(steps), "--device", "cuda", "--seed", "0",
             "--log-every", "1"]
-    log(f"sync path: python -m repro_torch.launch.train {' '.join(argv)}")
+    log(f"sync path: python -m repro_torch.launch.train {' '.join(argv)}"
+        + (f" (cfg: n_layers {cfg.n_layers})" if cfg is not None else ""))
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     for k in kernels:
         k.launches = 0
     t0 = time.perf_counter()
-    history = train.main(argv)
+    history = train.main(argv, cfg=cfg)
     wall = time.perf_counter() - t0
     counts = {k.name: k.launches for k in kernels}
     peak = torch.cuda.max_memory_allocated()
@@ -2239,6 +2288,7 @@ def run_sync_path(torch, kernels, sync: str, arch: str = "qwen3-1.7b",
                         "topk_cr_reduce": n_leaves * steps},
             "onebit_ef": {"onebit_cr_reduce": n_leaves * steps},
             "elastic": {}}[sync]
+    want = {**want, **(also or {})}
     for name, count in counts.items():
         require(count == want.get(name, 0),
                 f"{sync}: {name} launched {count} times, not "
@@ -2251,7 +2301,7 @@ def run_sync_path(torch, kernels, sync: str, arch: str = "qwen3-1.7b",
 # ---------------------------------------------------------------------------
 
 RWKV_ARCH = "rwkv6-1.6b"
-RWKV_STEPS = 2
+TRAIN_STEPS = 2
 # phase 24: card against CPU.  f32 compute within SMALL_F32_TOL; bf16 within
 # SMALL_BF16_TOL, the bound the CPU parity tests hold these models to
 # against the reference (tests/test_torch_rwkv6.py, test_torch_archs.py)
@@ -2260,96 +2310,270 @@ SMALL_F32_TOL, SMALL_BF16_TOL = 1e-3, 0.1
 LOOP_SERVES = (("rwkv6-1.6b", 4, 4096, 32), ("gemma3-27b", 1, 2048, 16))
 
 
-def _model_logits(torch, TF, cfg, params, d, toks, feed):
-    """forward, prefill + teacher-forced decode steps of ``cfg`` on device
-    ``d``: the logits of each, f32 on the CPU."""
+def _model_logits(torch, TF, cfg, params, d, batch, feed):
+    """``forward`` of ``cfg`` on device ``d``, then the batch's prompt
+    (its tokens and a frontend's stub embeddings) through ``prefill`` and
+    the teacher-forced decode steps: the logits of each, f32 on the CPU,
+    and the forward's aux loss."""
     from repro_torch import tree as T
     p = T.tree_map(lambda a: a.to(d), params)
-    batch = {"tokens": torch.tensor(toks, device=d)}
+    b = {k: v.to(d) for k, v in batch.items()}
+    prompt = {k: v for k, v in b.items() if k != "labels"}
     with torch.no_grad():
-        out = [TF.forward(cfg, p, batch)[0].float().cpu()]
-        lg, cache = TF.prefill(cfg, p, batch, toks.shape[1] + len(feed))
+        logits, aux = TF.forward(cfg, p, b)
+        out = [logits.float().cpu()]
+        lg, cache = TF.prefill(cfg, p, prompt,
+                               b["tokens"].shape[1] + len(feed))
         out.append(lg.float().cpu())
         for f in feed:
             lg, cache = TF.decode_step(cfg, p, cache,
                                        torch.tensor(f, device=d))
             out.append(lg.float().cpu())
-    return out
+    return out, float(aux)
 
 
-def check_small_models(torch, dev):
-    """Phase 24, models: rwkv6-1.6b-smoke and gemma3's grouped stack
-    (gemma3-27b-smoke with n_layers 7, global_every 3: windows [32, 32, 0,
-    32, 32, 0, 32]) on the card against the same code on the CPU: forward,
-    prefill of 128 and 4 teacher-forced decode steps, in f32 compute and
-    in bf16, with TF32 and reduced-precision bf16 reductions off."""
-    import dataclasses
-
+def check_small_models(torch, dev, cfgs, seq, f32_tol, bf16_tol,
+                       aux_tol=0.0):
+    """Phases 24 and 29, models: each config of ``cfgs`` on the card
+    against the same code on the CPU, on a ``synthetic_batch`` of 2 x
+    ``seq`` (the stubs' embeddings included): forward, prefill and 4
+    teacher-forced decode steps, in f32 compute (logits within
+    ``f32_tol``) and in bf16 (``bf16_tol``), the router's aux loss within
+    ``aux_tol``, with TF32 and reduced-precision bf16 reductions off."""
     import numpy as np
 
-    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import synthetic_batch
     from repro_torch.models import transformer as TF
     from repro_torch.models.params import init_params
 
-    gemma = dataclasses.replace(get_config("gemma3-27b-smoke"), n_layers=7,
-                                global_every=3)
-    require(gemma.layer_window_sizes() == [32, 32, 0, 32, 32, 0, 32],
-            "gemma3's grouped windows")
     rng = np.random.default_rng(0)
     set_matmul_precision(torch, False)
     compute = TF.COMPUTE_DTYPE
     try:
-        for cfg in (get_config("rwkv6-1.6b-smoke"), gemma):
-            toks = rng.integers(0, cfg.vocab_size, (2, 128)).astype(np.int32)
+        for cfg in cfgs:
+            batch = synthetic_batch(cfg, 2, seq, seed=0)
             feed = rng.integers(0, cfg.vocab_size,
                                 (4, 2, 1)).astype(np.int32)
             params = init_params(TF.model_defs(cfg),
                                  torch.Generator().manual_seed(0), "cpu")
-            for dtype, tol in ((torch.float32, SMALL_F32_TOL),
-                               (torch.bfloat16, SMALL_BF16_TOL)):
+            for dtype, tol in ((torch.float32, f32_tol),
+                               (torch.bfloat16, bf16_tol)):
                 TF.COMPUTE_DTYPE = dtype
-                cpu = _model_logits(torch, TF, cfg, params, "cpu", toks, feed)
-                card = _model_logits(torch, TF, cfg, params, dev, toks, feed)
+                cpu, aux_c = _model_logits(torch, TF, cfg, params, "cpu",
+                                           batch, feed)
+                card, aux_g = _model_logits(torch, TF, cfg, params, dev,
+                                            batch, feed)
                 err = max(float((a - b).abs().max())
                           for a, b in zip(cpu, card))
                 finite = all(bool(torch.isfinite(a).all()) for a in card)
                 log(f"check model {cfg.name} n_layers {cfg.n_layers} windows "
-                    f"{cfg.layer_window_sizes()}, compute {dtype}, card vs "
-                    f"cpu, forward + prefill of 128 + 4 decode steps: logits "
-                    f"max_abs_err {err} (tol {tol}; max |logit| "
-                    f"{max(float(a.abs().max()) for a in cpu)})")
+                    f"{sorted(set(cfg.layer_window_sizes()))}, "
+                    f"{cfg.frontend} frontend, {cfg.n_experts} experts, "
+                    f"compute {dtype}, card vs cpu, forward + prefill of "
+                    f"{seq} + 4 decode steps: logits max_abs_err {err} (tol "
+                    f"{tol}; max |logit| "
+                    f"{max(float(a.abs().max()) for a in cpu)}), aux "
+                    f"{aux_g} vs {aux_c} (tol {aux_tol})")
                 require(finite, f"{cfg.name}: non-finite logits on the card")
                 require(err <= tol, f"{cfg.name}: logits differ card vs cpu")
+                require(abs(aux_g - aux_c) <= aux_tol,
+                        f"{cfg.name}: aux loss differs card vs cpu")
     finally:
         TF.COMPUTE_DTYPE = compute
 
 
-def run_rwkv6_training(torch, kernels, records):
-    """Phase 25: full-width rwkv6-1.6b through the trainer's entry point,
-    ``--sync async --compressor topk`` then ``--sync topk_ef``, 2 steps
-    each, the launch counters zeroed just before each run and read just
-    after: exactly 2 K1 calls a leaf a step and one K2 (async) or K4
-    (sync) call a leaf a step."""
-    n = model_leaves(RWKV_ARCH)
+def run_family_training(torch, kernels, records, arch, layers, tau_max,
+                        key, forward_kernels=None):
+    """Phases 25, 30 and 31: ``arch`` at full width, cut to ``layers``
+    (None: its full depth), through the trainer's entry point (``cfg=``),
+    ``TRAIN_STEPS`` async top-k steps at ``tau_max``, then
+    ``TRAIN_STEPS`` ``--sync topk_ef`` steps, the launch counters zeroed
+    just before each run and read just after: exactly 2 K1 calls a leaf a
+    step, one K2 (async) or K4 (sync) call a leaf a step, and
+    ``forward_kernels`` (name -> launches a run: K10 on the Mamba2 stack);
+    the counts go to ``records`` under ``key``.  Returns the config."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch import tree as T
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.params import count_params
+
+    base = get_config(arch)
+    cfg = dataclasses.replace(base, n_layers=layers or base.n_layers)
+    defs = TF.model_defs(cfg)
+    n = len(T.leaves(defs))
+    big = max(zip(T.paths(defs), T.leaves(defs)),
+              key=lambda pd: math.prod(pd[1].shape))
+    log(f"{arch} training at full width, {cfg.n_layers} of {base.n_layers} "
+        f"layers: {n} leaves, {count_params(defs)} entries; largest "
+        f"{big[0]} {math.prod(big[1].shape)}")
+    also = forward_kernels or {}
     gc.collect()
     torch.cuda.empty_cache()
-    counts = run_path(torch, kernels, "topk", RWKV_STEPS, arch=RWKV_ARCH)
-    want = {"topk_ef": n * 2 * RWKV_STEPS, "topk_cr_deposit": n * RWKV_STEPS}
+    counts = run_path(torch, kernels, "topk", TRAIN_STEPS, arch=arch,
+                      tau_max=tau_max, cfg=cfg)
+    want = {"topk_ef": n * 2 * TRAIN_STEPS,
+            "topk_cr_deposit": n * TRAIN_STEPS, **also}
     for name, count in counts.items():
         require(count == want.get(name, 0),
-                f"rwkv6 async: {name} launched {count} times, not "
+                f"{arch} async: {name} launched {count} times, not "
                 f"{want.get(name, 0)}")
-    got = {"topk_ef": counts["topk_ef"],
-           "topk_cr_deposit": counts["topk_cr_deposit"]}
+    got = {name: counts[name] for name in want}
     gc.collect()
     torch.cuda.empty_cache()
-    counts = run_sync_path(torch, kernels, "topk_ef", arch=RWKV_ARCH,
-                           steps=RWKV_STEPS)
+    counts = run_sync_path(torch, kernels, "topk_ef", arch=arch,
+                           steps=TRAIN_STEPS, cfg=cfg, also=also)
     got["topk_ef"] += counts["topk_ef"]
     got["topk_cr_reduce"] = counts["topk_cr_reduce"]
+    for name in also:
+        got[name] += counts[name]
     for name, count in got.items():
-        records[name]["rwkv6_launches"] = count
-    log(f"rwkv6 training: {n} leaves; launches {json.dumps(got)}")
+        records[name][key] = count
+    log(f"{arch} training: launches {json.dumps(got)}")
+    return cfg
+
+
+# ---------------------------------------------------------------------------
+# phases 29-32: moonshot-v1-16b-a3b, grok-1-314b, the frontends, zamba2
+# training
+# ---------------------------------------------------------------------------
+
+FAMILY_SMOKES = ("moonshot-v1-16b-a3b-smoke", "grok-1-314b-smoke",
+                 "internvl2-2b-smoke", "musicgen-large-smoke")
+# phase 29: card against CPU, the bounds tests/test_torch_families.py holds
+# these smoke models to against the reference (f32 compute logits, bf16
+# logits, the router's aux loss)
+FAMILY_F32_TOL, FAMILY_BF16_TOL, FAMILY_AUX_TOL = 1e-3, 0.3, 2e-3
+# K10 under autograd at zamba2 training's shape (one worker's batch 2 x 256
+# of 64 heads of 112, N 64), bf16: the gradients against ssd_plain's
+# autograd, within SSD_GRAD_REL of each gradient's largest magnitude (the
+# backward is ssd_plain's, recomputed on the same inputs, so the two are
+# expected bitwise equal)
+SSD_TRAIN = (2, 256, 64, 112, 64)
+SSD_GRAD_REL = 1e-6
+MOONSHOT, MOONSHOT_LAYERS, MOONSHOT_TAU = "moonshot-v1-16b-a3b", 2, 1
+ZAMBA2, ZAMBA2_LAYERS = "zamba2-7b", 12
+GROK, GROK_LAYERS = "grok-1-314b", 6
+# phase 32's loop serves: (arch, batch, prompt, tokens), full depth
+FRONTEND_SERVES = (("internvl2-2b", 4, 4096, 16),
+                   ("musicgen-large", 4, 2048, 16))
+
+
+def check_ssd_autograd(torch, dev, gen):
+    """Phase 29, K10 under autograd at zamba2 training's shape in bf16,
+    with decays in (-1, 0) and in (-2, -1) (a chunk's summed decay then
+    passes -128: exp(cum_i - cum_j) above the diagonal overflows, which
+    the plain version masks before the exponential): the forward bitwise
+    the no-grad launch and one launch counted; the backward launches
+    nothing and gives ssd_plain's autograd gradients within SSD_GRAD_REL,
+    finite, in the inputs' dtypes."""
+    from repro_torch.kernels.ssd.kernel import ssd_chunked
+    from repro_torch.kernels.ssd.ref import ssd_plain
+    b, t, h, hd, n = SSD_TRAIN
+    for lo in (0.0, 1.0):
+        x = torch.randn((b, t, h, hd), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        a = -lo - torch.rand((b, t, h), generator=gen, device=dev)
+        bm = torch.randn((b, t, n), generator=gen,
+                         device=dev).to(torch.bfloat16)
+        cm = torch.randn((b, t, n), generator=gen,
+                         device=dev).to(torch.bfloat16)
+        wy = torch.randn((b, t, h, hd), generator=gen, device=dev)
+        ws = torch.randn((b, h, hd, n), generator=gen, device=dev)
+        y0, s0 = ssd_chunked(x, a, bm, cm)
+        grads, ms = [], []
+        for fn in (ssd_chunked, ssd_plain):
+            ins = [v.clone().requires_grad_() for v in (x, a, bm, cm)]
+            torch.cuda.synchronize()
+            before = ssd_chunked.launches
+            t0 = time.perf_counter()
+            y, s = fn(*ins)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ((y.float() * wy).sum() + (s * ws).sum()).backward()
+            torch.cuda.synchronize()
+            ms.append(((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3))
+            if fn is ssd_chunked:
+                same = torch.equal(y, y0) and torch.equal(s, s0)
+                require(same and ssd_chunked.launches == before + 1,
+                        "K10 under autograd: forward not the no-grad launch")
+            grads.append([v.grad for v in ins])
+        worst, bitwise = 0.0, True
+        for got, want, v in zip(*grads, (x, a, bm, cm)):
+            require(got.dtype == v.dtype and got.is_contiguous()
+                    and bool(torch.isfinite(got.float()).all()),
+                    "K10 gradient dtype, layout or finiteness")
+            scale = float(want.float().abs().max())
+            worst = max(worst, float((got.float() - want.float()).abs().max())
+                        / scale)
+            bitwise = bitwise and torch.equal(got, want)
+        log(f"check ssd_chunked under autograd {SSD_TRAIN} bf16, a in "
+            f"({-lo - 1}, {-lo}): forward bitwise the no-grad launch, 1 "
+            f"launch, none in backward; gradients vs ssd_plain's autograd: "
+            f"largest error {worst} of each gradient's max (tol "
+            f"{SSD_GRAD_REL}), bitwise {bitwise}; host clock, one call "
+            f"each: kernel forward {ms[0][0]:.3f} ms + backward "
+            f"{ms[0][1]:.3f} ms, plain forward {ms[1][0]:.3f} ms + backward "
+            f"{ms[1][1]:.3f} ms")
+        require(worst <= SSD_GRAD_REL, "K10 gradients differ from ssd_plain's")
+        del x, a, bm, cm, wy, ws, y0, s0, grads
+    torch.cuda.empty_cache()
+
+
+def run_moonshot_training(torch, kernels, records):
+    """Phase 30: moonshot-v1-16b-a3b at full width, 2 of its 48 layers (13
+    leaves; ``w_gate``, ``w_up`` and ``w_down`` 369,098,752 entries each),
+    async at tau_max 1, then ``topk_ef``; a profiled ``topk_ef`` step with
+    the ``moe_dispatch`` range (routing and the dispatch product) grouped
+    apart."""
+    cfg = run_family_training(torch, kernels, records, MOONSHOT,
+                              MOONSHOT_LAYERS, MOONSHOT_TAU,
+                              "moonshot_launches")
+    gc.collect()
+    torch.cuda.empty_cache()
+    profile_step(torch, "profile moonshot topk_ef step", sync="topk_ef",
+                 arch=MOONSHOT, cfg=cfg, range_name="moe_dispatch",
+                 range_group="MoE dispatch")
+
+
+def run_zamba2_training(torch, kernels, records):
+    """Phase 31: zamba2-7b at full width, 12 of its 81 Mamba2 layers (the
+    shared block twice; 27 leaves), async at tau_max 2, then ``topk_ef``.
+    K10 runs each Mamba2 layer's forward under autograd, once a layer a
+    worker a step, and never in backward (its backward is ``ssd_plain``
+    recomputed; no layer is checkpointed): 2 workers x 12 layers x 2
+    steps = 48 launches a run.  Then a profiled async step with K10's
+    passes and the shared block's attention grouped apart."""
+    k10 = {"ssd_chunked": 2 * ZAMBA2_LAYERS * TRAIN_STEPS}
+    cfg = run_family_training(torch, kernels, records, ZAMBA2,
+                              ZAMBA2_LAYERS, 2, "zamba2_launches", k10)
+    gc.collect()
+    torch.cuda.empty_cache()
+    profile_step(torch, "profile zamba2 async step", arch=ZAMBA2, cfg=cfg,
+                 groups=HYBRID_GROUPS[:1] + PROFILE_GROUPS,
+                 range_name="shared_attention",
+                 range_group="shared attention")
+
+
+def run_family_serves(torch, kernels):
+    """Phase 32: moonshot-v1-16b-a3b at full depth and grok-1-314b cut to
+    6 of 64 layers through ``--engine continuous`` (full attention, no
+    kernel of the port), a profiled moonshot decode step with the full
+    attention's gather and scores (``attend_full``) grouped apart; then
+    internvl2-2b and musicgen-large at full depth through ``--engine
+    loop`` with their stubs' embeddings (no kernel of the port)."""
+    counts, out = run_serve(torch, kernels, MOONSHOT, None, per_step=())
+    profile_serve(torch, out["engine"], "attend_full", "full attention")
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts, out = run_serve(torch, kernels, GROK, GROK_LAYERS, per_step=())
+    del out
+    for arch, batch, prompt, n_tok in FRONTEND_SERVES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        run_loop_serve(torch, kernels, arch, batch, prompt, n_tok)
 
 
 def main() -> int:
@@ -2359,6 +2583,9 @@ def main() -> int:
               "NVIDIA card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    import dataclasses
+
+    from repro_torch.configs import get_config
     from repro_torch.kernels import (_build, all_kernels, main_path_kernels,
                                      sim_kernels)
 
@@ -2478,16 +2705,41 @@ def main() -> int:
     # serving RWKV6 and full-depth gemma3-27b through the loop
     gc.collect()
     torch.cuda.empty_cache()
-    check_small_models(torch, dev)
+    # gemma3's grouped stack: 7 layers, every third global
+    gemma = dataclasses.replace(get_config("gemma3-27b-smoke"), n_layers=7,
+                                global_every=3)
+    require(gemma.layer_window_sizes() == [32, 32, 0, 32, 32, 0, 32],
+            "gemma3's grouped windows")
+    check_small_models(torch, dev, (get_config("rwkv6-1.6b-smoke"), gemma),
+                       128, SMALL_F32_TOL, SMALL_BF16_TOL)
     check_small_path(torch, dev, "rwkv6-1.6b-smoke", (("topk", 1),))
     check_small_sync(torch, dev, "rwkv6-1.6b-smoke", ("topk_ef",), steps=1)
-    run_rwkv6_training(torch, all_kernels(), records)
+    run_family_training(torch, all_kernels(), records, RWKV_ARCH, None, 2,
+                        "rwkv6_launches")
     gc.collect()
     torch.cuda.empty_cache()
     profile_step(torch, "profile rwkv6 async step", arch=RWKV_ARCH)
-    for arch, batch, prompt, gen in LOOP_SERVES:
-        run_loop_serve(torch, all_kernels(), arch, batch, prompt, gen)
+    for arch, batch, prompt, n_tok in LOOP_SERVES:
+        run_loop_serve(torch, all_kernels(), arch, batch, prompt, n_tok)
         profile_loop(torch, arch, batch, prompt)
+
+    # the last four families and zamba2 training: the small card-vs-CPU
+    # checks (the new smoke models, zamba2's fed async and topk_ef halves
+    # and K10 under autograd), moonshot and zamba2 training at full width
+    # (K1 with K2 or K4, K10 in zamba2's forward), then serving moonshot,
+    # grok-1 and the two frontends
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_small_models(torch, dev, [get_config(n) for n in FAMILY_SMOKES],
+                       64, FAMILY_F32_TOL, FAMILY_BF16_TOL, FAMILY_AUX_TOL)
+    check_small_path(torch, dev, "zamba2-7b-smoke", (("topk", 1),))
+    check_small_sync(torch, dev, "zamba2-7b-smoke", ("topk_ef",), steps=1)
+    check_ssd_autograd(torch, dev, gen)
+    run_moonshot_training(torch, all_kernels(), records)
+    run_zamba2_training(torch, all_kernels(), records)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_family_serves(torch, all_kernels())
     log(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -2496,7 +2748,8 @@ def main() -> int:
         "redesign (one device_ms reading each, H100 80GB HBM3 at 700.00 W, "
         "PERF.md) " + ", ".join(f"{name} {ms} ms"
                                 for name, ms in EARLIER_MS.items()))
-    extra = ("sector_bound_ms", "rwkv6_launches")
+    extra = ("sector_bound_ms", "rwkv6_launches", "moonshot_launches",
+             "zamba2_launches")
     line = [{k: records[kern.name][k] for k in keys
              + tuple(k for k in extra if k in records[kern.name])}
             for kern in all_kernels()]

@@ -3,9 +3,10 @@
 The dataclass carries every field of the reference's ``ArchConfig`` so a
 parity test can compare the two field by field; the port runs the
 attention stack (``block_type == "attn"``), dense or MoE, with a uniform
-window or gemma3's local:global pattern, the Mamba2 stack (``"mamba2"``)
-with or without the shared attention block, and the RWKV6 stack
-(``"rwkv6"``).
+window or gemma3's local:global pattern and the vision or audio frontend
+stub, the Mamba2 stack (``"mamba2"``) with or without the shared attention
+block, and the RWKV6 stack (``"rwkv6"``).  ``InputShape`` and
+``INPUT_SHAPES`` are the reference's workloads, as plain data.
 """
 from __future__ import annotations
 
@@ -82,6 +83,14 @@ class ArchConfig:
         return (self.block_type in (BLOCK_MAMBA2, BLOCK_RWKV6)
                 and self.shared_attn_every == 0)
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if the arch supports long_500k (SSM / hybrid / windowed
+        attention)."""
+        if self.block_type in (BLOCK_MAMBA2, BLOCK_RWKV6):
+            return True
+        return self.sliding_window > 0
+
     def layer_window_sizes(self) -> list[int]:
         """Per-layer attention window (0 = full/global) for attn stacks."""
         out = []
@@ -124,6 +133,15 @@ class ArchConfig:
             n += 4 * d * d + 3 * d * self.d_ff
         return n
 
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: only the routed experts)."""
+        if not self.is_moe:
+            return self.param_count()
+        per_layer_expert = 3 * self.d_model * self.expert_d_ff
+        inactive = (self.n_layers * (self.n_experts - self.experts_per_token)
+                    * per_layer_expert)
+        return self.param_count() - inactive
+
     def reduced(self) -> "ArchConfig":
         """Tiny same-family variant for CPU tests (2 layers, d_model<=128)."""
         d = min(self.d_model, 128)
@@ -157,3 +175,21 @@ class ArchConfig:
             n_prefix_embeds=(min(self.n_prefix_embeds, 8)
                              if self.n_prefix_embeds else 0),
         )
+
+
+@dataclass(frozen=True)
+class InputShape:
+    """One assigned (seq_len, global_batch) workload."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}

@@ -37,7 +37,7 @@ def loss_fn(cfg: ArchConfig, params, batch: dict, layer_sinks=None):
     loss, as in the reference's fault-injection channel."""
     logits, aux = TF.forward(cfg, params, batch, layer_sinks)
     logp = F.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, batch["labels"][..., None])
+    nll = -torch.gather(logp, -1, batch["labels"].long()[..., None])
     ce = torch.mean(nll)
     loss = ce + cfg.router_aux_weight * aux
     if "loss_scale" in batch:

@@ -5,8 +5,18 @@ The wrapper checks device, dtype, shape and contiguity, allocates ``y``,
 the final state and the workspace of the chunk states with
 ``torch.empty``, launches the kernel's three passes (chunk states, the
 scan over chunks, outputs) on the current stream, raises on a non-zero
-launch error and counts each call once in ``.launches``.  The kernel has
-no backward: a call that autograd would have to differentiate raises.
+launch error and counts each call once in ``.launches``.
+
+Under autograd (grad mode on and an input that requires grad, as in
+zamba2 training) the call goes through :class:`_SsdFunction`: its forward
+launches the kernel on the inputs exactly as the no-grad call does, and
+keeps those inputs, not ``y``; its backward recomputes the plain version
+of the same function, ``ref.ssd_plain``, under ``torch.enable_grad()`` and
+returns ``torch.autograd.grad`` of ``(y, state)`` with the incoming
+gradients.  The backward has no kernel by design: the JAX package has no
+backward kernel for the scan either and differentiates its plain chunked
+form.  A failed build or launch in the forward raises; it never gives way
+to the plain forward.
 """
 from __future__ import annotations
 
@@ -15,7 +25,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ssd.ref import CHUNK, chunk_len
+from repro_torch.kernels.ssd.ref import CHUNK, chunk_len, ssd_plain
 
 _VP, _LL = ctypes.c_void_p, ctypes.c_longlong
 MAX_DIM = 128          # hd, N and the chunk
@@ -84,9 +94,13 @@ class SsdChunked:
                 _need(v.dtype == xh.dtype, f"{what} must be {xh.dtype}")
         if torch.is_grad_enabled() and any(
                 v.requires_grad for v in (xh, a, bmat, cmat)):
-            raise NotImplementedError(
-                "ssd_chunked: the kernel has no backward (training through "
-                "the SSD scan is not ported)")
+            return _SsdFunction.apply(self, c, xh, a, bmat, cmat)
+        return self._launch(xh, a, bmat, cmat, c)
+
+    def _launch(self, xh, a, bmat, cmat, c: int):
+        b, t, h, hd = xh.shape
+        n = bmat.shape[2]
+        dev = xh.device
         lib = _lib()
         with torch.cuda.device(dev):
             y = torch.empty_like(xh)
@@ -112,6 +126,34 @@ class SsdChunked:
         _build.check(rc, self.name)
         self.launches += 1
         return y, state
+
+
+class _SsdFunction(torch.autograd.Function):
+    """K10 forward, ``ssd_plain`` recomputed and differentiated backward."""
+
+    @staticmethod
+    def forward(ctx, kernel, chunk, xh, a, bmat, cmat):
+        ctx.chunk = chunk
+        ctx.save_for_backward(xh, a, bmat, cmat)
+        ctx.set_materialize_grads(False)
+        return kernel._launch(xh, a, bmat, cmat, chunk)
+
+    @staticmethod
+    def backward(ctx, g_y, g_state):
+        need = ctx.needs_input_grad[2:]
+        used = [(i, g) for i, g in enumerate((g_y, g_state)) if g is not None]
+        if not used:
+            return (None,) * 6
+        with torch.enable_grad():
+            ins = [v.detach().requires_grad_(r)
+                   for v, r in zip(ctx.saved_tensors, need)]
+            outs = ssd_plain(*ins, chunk=ctx.chunk)
+            wrt = [v for v in ins if v.requires_grad]
+            got = iter(torch.autograd.grad(
+                [outs[i] for i, _ in used], wrt, [g for _, g in used],
+                allow_unused=True, materialize_grads=True))
+        return (None, None, *(next(got).to(v.dtype).contiguous() if r
+                              else None for v, r in zip(ins, need)))
 
 
 ssd_chunked = SsdChunked()

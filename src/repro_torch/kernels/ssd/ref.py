@@ -28,7 +28,9 @@ def ssd_plain(xh, a, bmat, cmat, *, chunk: int = CHUNK):
 
     xh (B, T, H, hd); a (B, T, H) log-decays (<= 0); bmat, cmat (B, T, N).
     Returns (y (B, T, H, hd) in xh's dtype, rounded once; the final state
-    (B, H, hd, N) f32)."""
+    (B, H, hd, N) f32).  Differentiable: it is the backward of the K10
+    kernel (``kernel.py``), as the reference differentiates its plain
+    chunked scan."""
     b, t, h, hd = xh.shape
     n = bmat.shape[-1]
     c = chunk_len(t, chunk)
@@ -44,8 +46,12 @@ def ssd_plain(xh, a, bmat, cmat, *, chunk: int = CHUNK):
         xc, ac = x[:, :, t0:t0 + c], la[:, :, t0:t0 + c]
         bc, cc = bm[:, t0:t0 + c], cm[:, t0:t0 + c]
         cum = torch.cumsum(ac, dim=-1)                 # (B, H, C)
-        lmat = torch.where(mask, torch.exp(cum[..., :, None]
-                                           - cum[..., None, :]), 0.0)
+        # masked before the exponential: above the diagonal cum_i - cum_j
+        # is >= 0 and overflows to inf across a chunk of strong decays,
+        # and a where() after exp would give the backward 0 * inf = NaN;
+        # exp(-inf) = 0 keeps the forward bitwise the same
+        lmat = torch.exp(torch.where(mask, cum[..., :, None]
+                                     - cum[..., None, :], -torch.inf))
         amat = (cc @ bc.transpose(1, 2))[:, None] * lmat   # (B, H, C, C)
         y = amat @ xc + torch.exp(cum)[..., None] * (
             cc[:, None] @ state.transpose(-1, -2))

@@ -9,8 +9,12 @@ the dense legacy loop or the continuous-batching engine.
     python -m repro_torch.launch.serve --arch qwen3-1.7b-smoke \\
         --engine loop --prompt-len 32 --gen 16 --batch 4
 
-    # the Mamba2 hybrid, RWKV6 and gemma3's local:global stack serve
-    # through the loop only (the paged engine raises NotImplementedError)
+    # the Mamba2 hybrid, RWKV6, gemma3's local:global stack and the vision
+    # and audio frontends serve through the loop only (the paged engine
+    # raises NotImplementedError); a frontend arch's prompt carries its
+    # stub embeddings from data.pipeline.synthetic_batch
+    python -m repro_torch.launch.serve --arch internvl2-2b-smoke \\
+        --engine loop --prompt-len 32 --gen 16 --batch 4
     python -m repro_torch.launch.serve --arch zamba2-7b-smoke \\
         --engine loop --prompt-len 32 --gen 16 --batch 4
     python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
@@ -60,6 +64,8 @@ def _run_loop(args, cfg, params, sample, device):
     import numpy as np
     import torch
 
+    from repro_torch.configs.base import FRONTEND_NONE
+    from repro_torch.data.pipeline import synthetic_batch
     from repro_torch.dist.train import make_decode_step, make_prefill_step
 
     max_len = args.prompt_len + args.gen
@@ -70,6 +76,13 @@ def _run_loop(args, cfg, params, sample, device):
     decode = make_decode_step(cfg, sample)
     gen = torch.Generator(device=device).manual_seed(args.seed + 1)
     batch = {"tokens": torch.tensor(tokens, device=device)}
+    if cfg.frontend != FRONTEND_NONE:
+        # the stub's frame or patch embeddings, as the reference builds its
+        # prompt with synthetic_batch; the tokens stay the ones drawn above
+        stubs = synthetic_batch(cfg, args.batch, args.prompt_len, args.seed,
+                                device=device)
+        batch.update({k: v for k, v in stubs.items()
+                      if k not in ("tokens", "labels")})
     cuda = device.type == "cuda"
     if cuda:
         marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]

@@ -9,6 +9,11 @@ without its checkpointing, fault injection and tensor parallelism).
     python -m repro_torch.launch.train --arch rwkv6-1.6b --sync async \\
         --compressor topk --topk-ratio 0.0625 --tau-max 2 --workers 2 \\
         --batch 4 --seq 256 --steps 2
+    python -m repro_torch.launch.train --arch zamba2-7b-smoke \\
+        --sync topk_ef --workers 2 --steps 3
+
+``--arch`` takes every id of ``repro_torch.configs`` and its ``-smoke``
+variant.
 
 ``--sync exact`` is the exact step on the whole batch; ``topk_ef``,
 ``onebit_ef`` and ``elastic`` (norm gate, ``--beta``, ``--budget-b``) are
@@ -76,10 +81,14 @@ def resolve_device(name: str):
     return device
 
 
-def main(argv=None) -> list[dict]:
+def main(argv=None, *, cfg=None) -> list[dict]:
     """Run the configured training; returns one metrics dict per step
     (``loss``, ``gap2_over_alpha2``, ``stale_gap2``, ``mean_tau``,
-    ``step_s``; a metric the strategy does not have is 0)."""
+    ``step_s``; a metric the strategy does not have is 0).  ``cfg`` (an
+    ``ArchConfig``) overrides ``--arch``, e.g. a config cut in depth.
+    Every arch trains on the synthetic token stream; a frontend arch
+    (vision, audio) then embeds its tokens, as the reference's launcher
+    does."""
     args = _parse(argv)
     import numpy as np
     import torch
@@ -105,7 +114,7 @@ def main(argv=None) -> list[dict]:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
             False
-    cfg = get_config(args.arch)
+    cfg = cfg if cfg is not None else get_config(args.arch)
     defs = TF.model_defs(cfg)
     specs = param_specs(defs)
     gen = torch.Generator(device=device).manual_seed(args.seed)

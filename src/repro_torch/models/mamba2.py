@@ -8,7 +8,10 @@ State-space recurrence per head h (scalar decay a_t, state S in R^{hd x N}):
 
 With no state (prefill, training forward) the scan goes through
 ``kernels.ssd.ops.ssd``: the K10 kernel on the card, its plain version on
-the CPU.  Both compute the Pallas kernel's form, in f32 throughout.  With a
+the CPU.  Both compute the Pallas kernel's form, in f32 throughout.  Under
+autograd (training) K10 runs the forward on the card and its plain
+version, recomputed, gives the backward (``kernels/ssd/kernel.py``): one
+K10 launch a Mamba2 layer a forward, none in backward.  With a
 state (decode, T = 1) the block runs the model's own chunked form
 :func:`ssd_chunked`, which casts the (C, C) decay-masked matrix to x's
 dtype before the product with X, exactly as the reference does.  So a

@@ -3,7 +3,9 @@ stacks: the attention stack, dense or MoE, with a uniform window or
 gemma3's local:global pattern; the Mamba2 stack with zamba2's shared
 attention block; and the RWKV6 stack.  Each has the training forward and
 the serving ``prefill`` / ``decode_step`` over dense caches (for
-attention, the paged engine's oracle).
+attention, the paged engine's oracle).  ``forward`` and ``prefill`` take
+the vision and audio frontend stubs' embeddings from the batch
+(:func:`embed_input`); ``decode_step`` embeds tokens.
 
 Parameters keep the reference's stacked layout (leading ``n_layers`` dim
 on every layer leaf); the stack loops over layers in Python, so each
@@ -32,7 +34,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (BLOCK_ATTN, BLOCK_MAMBA2, BLOCK_RWKV6,
-                                      FRONTEND_NONE, ArchConfig)
+                                      FRONTEND_AUDIO, FRONTEND_VISION,
+                                      ArchConfig)
 from repro_torch import tree as T
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
@@ -44,9 +47,6 @@ from repro_torch.models.params import ParamDef, stack_defs
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    if cfg.frontend != FRONTEND_NONE:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend is not ported")
     if cfg.block_type not in (BLOCK_ATTN, BLOCK_MAMBA2, BLOCK_RWKV6):
         raise ValueError(f"{cfg.name}: unknown block {cfg.block_type!r}")
 
@@ -87,8 +87,21 @@ def model_defs(cfg: ArchConfig) -> dict:
 
 
 def embed_input(cfg: ArchConfig, params, batch: dict) -> torch.Tensor:
-    """Token embedding -> (B, S, d) in the compute dtype."""
-    return params["embed"][batch["tokens"]].to(COMPUTE_DTYPE)
+    """Token or frontend embedding -> (B, S, d) in the compute dtype.
+
+    The audio and vision frontends are stubs, as in the reference: an
+    audio batch's ``frame_embeds`` (B, S, d) replace the token embeddings,
+    a vision batch's ``patch_embeds`` (B, P, d) replace the first P
+    positions' token embeddings.  A batch without them embeds its tokens
+    only."""
+    if cfg.frontend == FRONTEND_AUDIO and "frame_embeds" in batch:
+        return batch["frame_embeds"].to(COMPUTE_DTYPE)
+    x = params["embed"][batch["tokens"].long()].to(COMPUTE_DTYPE)
+    if cfg.frontend == FRONTEND_VISION and "patch_embeds" in batch:
+        p = batch["patch_embeds"].shape[1]
+        x = torch.cat([batch["patch_embeds"].to(COMPUTE_DTYPE), x[:, p:]],
+                      dim=1)
+    return x
 
 
 def lm_logits(cfg: ArchConfig, params, x: torch.Tensor) -> torch.Tensor:

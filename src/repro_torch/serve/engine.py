@@ -68,17 +68,19 @@ def validate_paged_support(cfg: ArchConfig) -> int:
 # ---------------------------------------------------------------------------
 
 def _attend_full(cfg, q, kp, vp, table, pos, positions, dt):
-    """Full-table gather + masked-chunk attention (the parity path)."""
+    """Full-table gather + masked-chunk attention (the parity path), inside
+    an ``attend_full`` profiler range."""
     r = q.shape[0]
     hd = cfg.resolved_head_dim
     nk = cfg.n_kv_heads
-    keys = PC.gather_all(kp, table).to(dt)
-    vals = PC.gather_all(vp, table).to(dt)
-    k_pos = torch.arange(keys.shape[1], device=q.device)[None]
-    k_pos = torch.where(k_pos <= pos[:, None], k_pos, -1)
-    q5 = q.reshape(r, 1, nk, cfg.n_heads // nk, hd)
-    out = L.masked_attn_chunk(q5, keys, vals, positions, k_pos, 0,
-                              hd ** -0.5)
+    with torch.profiler.record_function("attend_full"):
+        keys = PC.gather_all(kp, table).to(dt)
+        vals = PC.gather_all(vp, table).to(dt)
+        k_pos = torch.arange(keys.shape[1], device=q.device)[None]
+        k_pos = torch.where(k_pos <= pos[:, None], k_pos, -1)
+        q5 = q.reshape(r, 1, nk, cfg.n_heads // nk, hd)
+        out = L.masked_attn_chunk(q5, keys, vals, positions, k_pos, 0,
+                                  hd ** -0.5)
     return out.reshape(r, 1, cfg.n_heads, hd).to(dt)
 
 

@@ -261,19 +261,21 @@ def test_serving_params_bf16_matrices_bitwise_f32():
 
 
 def test_check_supported():
-    """The Mamba2 stack with and without the shared block, and the RWKV6
-    stack (here with zamba2's shared block too, 8 heads of 16), build the
-    reference's leaf shapes; a frontend is still refused."""
+    """The Mamba2 stack with and without the shared block, the RWKV6 stack
+    (here with zamba2's shared block too, 8 heads of 16) and a vision
+    frontend build the reference's leaf shapes; an unknown block type is
+    still refused."""
     cfg = get_config("zamba2-7b-smoke")
     jcfg = jax_get_config("zamba2-7b-smoke")
     for repl in ({"shared_attn_every": 0},
-                 {"block_type": "rwkv6", "ssm_heads": 8}):
+                 {"block_type": "rwkv6", "ssm_heads": 8},
+                 {"frontend": "vision", "n_prefix_embeds": 8}):
         defs = TF.model_defs(dataclasses.replace(cfg, **repl))
         jdefs = JTF.model_defs(dataclasses.replace(jcfg, **repl))
         assert [d.shape for d in T.leaves(defs)] == [
             d.shape for d in jax.tree.leaves(jdefs, is_leaf=is_param_def)]
-    with pytest.raises(NotImplementedError):
-        TF.model_defs(dataclasses.replace(cfg, frontend="vision"))
+    with pytest.raises(ValueError):
+        TF.model_defs(dataclasses.replace(cfg, block_type="lstm"))
 
 
 def test_configs_match_reference():

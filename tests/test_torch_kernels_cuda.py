@@ -211,6 +211,47 @@ def test_topk_deposit_k1_payloads_bitwise(cuda, m, r, k, ties, mixed):
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
+def test_topk_kernels_at_the_longest_leaf(cuda):
+    """K1, K2 and K4 at R = 369,098,752, moonshot-v1-16b-a3b's ``w_gate``
+    at 2 layers (64 x 2048 x 1408 a layer), the longest row any path
+    gives them (qwen3's was 352,321,536), k = R / 16: K1's picks in the
+    documented order, K2's ring (2 slots) and K4's sum of 2 payloads, each
+    bitwise the plain version."""
+    from repro_torch.kernels.cr_reduce.kernel import topk_cr_reduce
+    from repro_torch.kernels.cr_reduce.ref import topk_cr_reduce_plain
+    r = 2 * 64 * 2048 * 1408
+    k = r // 16
+    gen = torch.Generator(device=cuda).manual_seed(r)
+    g = torch.randn((1, r), generator=gen, device=cuda)
+    e = 0.1 * torch.randn((1, r), generator=gen, device=cuda)
+    kv, ki, ke = topk_ef(g, e, k)
+    pv, pi, pe = topk_ef_plain(g, e, k)
+    torch.cuda.synchronize()
+    dv, di = documented_order(pv, pi)
+    assert torch.equal(ki, di)
+    assert torch.equal(kv.view(torch.int32), dv.view(torch.int32))
+    assert torch.equal(ke.view(torch.int32), pe.view(torch.int32))
+    del e, ke, pe, pv, pi, dv, di
+    v2, i2, _ = topk_ef(g.neg_(), None, k, out_err=g)
+    vals, idx = torch.stack([kv, v2]), torch.stack([ki, i2])
+    del g, kv, ki, v2, i2
+    torch.cuda.empty_cache()
+    w = torch.tensor([1.0, 0.5], device=cuda)
+    want = topk_cr_reduce_plain(vals, idx, w, r)
+    got = topk_cr_reduce(vals, idx, w, r)
+    torch.cuda.synchronize()
+    assert topk_cr_reduce.last_route() == "segment"
+    assert _bits_equal(got, want)
+    del got, want
+    torch.cuda.empty_cache()
+    acc = 0.01 * torch.randn((2, 1, r), generator=gen, device=cuda)
+    slots = torch.tensor([1, 0], dtype=torch.int32, device=cuda)
+    want = topk_cr_deposit_plain(acc.clone(), vals, idx, slots, w)
+    got = topk_cr_deposit(acc, vals, idx, slots, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 def test_kernels_count_launches(cuda):
     acc, vals, idx, pos, means, slots, w = _deposit_inputs(cuda, 1, 64, 4)
     before = (topk_ef.launches, topk_cr_deposit.launches,
@@ -855,7 +896,49 @@ def test_ssd_chunked_kernel_raises_on_what_it_does_not_take(cuda):
                 (torch.randn((1, 256, 2, 200), device=cuda), a, bm, bm)):
         with pytest.raises(ValueError):
             ssd_chunked(*bad)
-    with pytest.raises(NotImplementedError):       # no backward kernel
-        ssd_chunked(x.requires_grad_(), a, bm, bm)
-    y, _ = SSD.ssd(x.detach(), a, bm, bm)          # CUDA: the kernel
+    y, _ = SSD.ssd(x, a, bm, bm)                   # CUDA: the kernel
     assert y.is_cuda
+
+
+@pytest.mark.parametrize("shape", [(2, 256, 64, 112, 64),
+                                   (1, 100, 3, 20, 5)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_ssd_chunked_kernel_backward(cuda, shape, dtype):
+    """K10 under autograd, at zamba2 training's shape (one worker's batch
+    of 2 x 256, 64 heads of 112, N 64) and a ragged one: the forward is
+    bitwise the no-grad launch and counted once; the backward launches
+    nothing and, fed the same incoming gradients (a loss linear in y and
+    the state), gives ``ssd_plain``'s autograd gradients: within 1e-6 of
+    each gradient's largest magnitude (both run ``ssd_plain``'s backward on
+    the same inputs), in the inputs' dtypes, contiguous."""
+    from repro_torch.kernels.ssd.kernel import ssd_chunked
+    from repro_torch.kernels.ssd.ref import ssd_plain
+    b, t, h, hd, n = shape
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(t + hd)
+    x = torch.randn((b, t, h, hd), generator=gen, device=cuda).to(dt)
+    a = -torch.rand((b, t, h), generator=gen, device=cuda)
+    bm = torch.randn((b, t, n), generator=gen, device=cuda).to(dt)
+    cm = torch.randn((b, t, n), generator=gen, device=cuda).to(dt)
+    wy = torch.randn((b, t, h, hd), generator=gen, device=cuda)
+    ws = torch.randn((b, h, hd, n), generator=gen, device=cuda)
+    y0, s0 = ssd_chunked(x, a, bm, cm)
+    grads = []
+    for fn in (ssd_chunked, ssd_plain):
+        ins = [v.clone().requires_grad_() for v in (x, a, bm, cm)]
+        before = ssd_chunked.launches
+        y, s = fn(*ins)
+        if fn is ssd_chunked:
+            assert ssd_chunked.launches == before + 1
+            assert torch.equal(y, y0) and torch.equal(s, s0)
+        ((y.float() * wy).sum() + (s * ws).sum()).backward()
+        if fn is ssd_chunked:
+            assert ssd_chunked.launches == before + 1
+        grads.append([v.grad for v in ins])
+    torch.cuda.synchronize()
+    for got, want, v in zip(*grads, (x, a, bm, cm)):
+        assert got.dtype == v.dtype and got.is_contiguous()
+        assert bool(torch.isfinite(got.float()).all())
+        scale = float(want.float().abs().max())
+        assert float((got.float() - want.float()).abs().max()) <= \
+            1e-6 * scale
