@@ -169,22 +169,63 @@ Phases (any failure exits non-zero):
     (batch 4, prompt 2048 of frame embeddings) at full depth through
     ``--engine loop``, 16 tokens each, no kernel of the port; every
     logit finite, every request served and page freed, every peak within
-    90% of the card.
+    90% of the card;
+33. small inputs, card against CPU: ``sgd``, ``momentum`` (and
+    ``nesterov``), ``adam`` (with ``weight_decay``, and through
+    ``warmup_cosine``) and ``clip_by_global_norm``, 5 steps on the same
+    leaves; a checkpoint round trip of qwen3-1.7b-smoke's async fused
+    state on the card (f32 params, momentum, rings and EF residuals, a
+    bf16 copy of the params, Python ints, the numpy tau table): bitwise,
+    and in place (every tensor keeps its ``data_ptr``);
+34. kill and resume of the main path: qwen3-1.7b at full width, cut to
+    ``KILL_RESUME_LAYERS`` of 28 layers, async top-k at tau_max 1, 2
+    workers, seq 256, batch 4, 4 steps, a checkpoint every 2, under a
+    fault plan (SIGKILL after step 2 on attempt 0, ``grad_poison`` at
+    step 1, worker 1 crashed at step 1 for 1 step).  The oracle is the
+    same flags with ``--fault-attempt 1`` (saving its final step only)
+    through ``repro_torch.launch.train.main``, twice (bitwise run to
+    run: the second run's final state is compared leaf by leaf with the
+    first's checkpoint instead of being written), launch
+    counters zeroed just before the first and read just after (exactly
+    104 ``topk_ef`` and 52 ``topk_cr_deposit``); then the run through
+    ``python -m repro_torch.launch.supervisor``: it is killed, resumed
+    from step 2, and each printed loss equals the oracle's, its final
+    checkpoint bitwise the oracle's; checkpoint bytes, save and load
+    seconds and the time from the kill to the first resumed step logged;
+    the checkpoint directories are deleted at the end;
+35. faulted serving: full-width mixtral-8x7b cut to 8 of 32 layers,
+    phase 14's requests through ``--engine continuous``, fault-free and
+    then with ``--fault-plan`` (``logit_poison`` at tick 4,
+    ``page_exhaust`` of 16 pages at tick 6 for 3 ticks): every request
+    served, none failed, ``FAULT_SERVE_QUARANTINED`` quarantined (the
+    reference's count on this schedule, held on the CPU by
+    ``tests/test_torch_faults.py``), every page freed, K9 once a layer a
+    decode step, the greedy tokens against the fault-free run's (the first
+    difference logged).
 
-The last three lines of standard output are the kernels' JSON record (K1,
-K2 and K4 also carry ``rwkv6_launches``, ``moonshot_launches`` and
-``zamba2_launches``, K10 ``zamba2_launches``), the card's name and power
-limit, and the result ``{"ok": true, "device": {...}}``.
+Phase 1 also logs the free disk of the checkpoint directory's filesystem
+and the free host memory.  The last three lines of standard output are the
+kernels' JSON record (K1, K2 and K4 also carry ``rwkv6_launches``,
+``moonshot_launches`` and ``zamba2_launches``, K1 and K2
+``kill_resume_launches``, K10 ``zamba2_launches``), the card's name and
+power limit, and the result ``{"ok": true, "device": {...}}``.
 """
+import contextlib
 import gc
+import io
 import json
 import math
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+# phase 34's checkpoints (git-ignored; deleted at the end of the phase)
+CKPT_ROOT = ROOT / ".chip_ckpt"
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory (data sheet)
 FP32_FLOPS_PER_S = 67e12            # H100 SXM FP32 outside the tensor cores
 TOPK_RATIO = 1 / 16
@@ -1518,9 +1559,11 @@ def serve_argv(arch: str = "mixtral-8x7b"):
 
 
 def run_serve(torch, kernels, arch: str = "mixtral-8x7b",
-              layers=SERVE_LAYERS, per_step=("swa_decode_attention",)):
-    """Phases 14 and 32: ``arch`` (cut to ``layers``, None: its full
-    depth) serving ``SERVE_PROMPTS`` through its launcher's entry point
+              layers=SERVE_LAYERS, per_step=("swa_decode_attention",),
+              extra=()):
+    """Phases 14, 32 and 35: ``arch`` (cut to ``layers``, None: its full
+    depth; ``extra``: more launcher arguments) serving ``SERVE_PROMPTS``
+    through its launcher's entry point
     with the continuous engine, the launch counters zeroed just before:
     each kernel of ``per_step`` launched once a layer a decode step, no
     other kernel of the port; returns (counts, result)."""
@@ -1531,7 +1574,7 @@ def run_serve(torch, kernels, arch: str = "mixtral-8x7b",
 
     cfg = get_config(arch)
     cfg = dataclasses.replace(cfg, n_layers=layers or cfg.n_layers)
-    argv = serve_argv(arch)
+    argv = serve_argv(arch) + list(extra)
     log(f"serve path: python -m repro_torch.launch.serve {' '.join(argv)} "
         f"({arch} with n_layers {cfg.n_layers}, windows "
         f"{sorted(set(cfg.layer_window_sizes()))}; {cfg.param_count()} "
@@ -2576,6 +2619,476 @@ def run_family_serves(torch, kernels):
         run_loop_serve(torch, kernels, arch, batch, prompt, n_tok)
 
 
+# ---------------------------------------------------------------------------
+# phases 33-35: optimizers, checkpoints, kill and resume, faulted serving
+# ---------------------------------------------------------------------------
+
+def host_resources() -> str:
+    """Free disk of ``CKPT_ROOT``'s filesystem and free host memory."""
+    free_disk = shutil.disk_usage(ROOT).free
+    avail = "unknown"
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                avail = str(int(line.split()[1]) * 1024)
+    return (f"free disk {free_disk} bytes ({ROOT}), free host memory "
+            f"{avail} bytes")
+
+
+OPTIM_STEPS = 5
+# card against CPU: the same elementwise arithmetic in the same order, but
+# the global norm's sums run in another order on the card, and adam's
+# moments have differed in the last bits (relative 8e-8 after 5 steps)
+OPTIM_TOL = 1e-6
+
+
+def check_optim(torch, dev) -> None:
+    """Phase 33a: every optimizer and schedule of ``repro_torch.optim``,
+    ``OPTIM_STEPS`` steps on the same leaves and gradients on the card and
+    on the CPU; params and state within ``OPTIM_TOL`` (relative, plus
+    ``OPTIM_TOL`` absolute), counts equal."""
+    import numpy as np
+
+    from repro_torch import optim as O
+
+    sched = O.warmup_cosine(3e-2, 2, 6)
+    cases = {
+        "sgd": (lambda: O.sgd(O.constant(0.05)), None),
+        "momentum": (lambda: O.momentum(O.constant(0.05), 0.9), None),
+        "nesterov": (lambda: O.momentum(O.constant(0.05), 0.9,
+                                        nesterov=True), None),
+        "adam": (lambda: O.adam(O.constant(1e-2)), None),
+        "adam_wd": (lambda: O.adam(O.constant(1e-2), weight_decay=0.01),
+                    None),
+        "adam_warmup_cosine": (lambda: O.adam(sched), None),
+        "momentum_clipped": (lambda: O.momentum(O.constant(0.05), 0.9), 2.5),
+    }
+    rng = np.random.default_rng(0)
+    shapes = ((1024, 64), (4099,), (3, 5, 7))
+    p0 = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    grads = [[rng.standard_normal(s).astype(np.float32) * np.float32(3 ** t)
+              for s in shapes] for t in range(OPTIM_STEPS)]
+    for name, (make, clip) in cases.items():
+        out = {}
+        for d in ("cpu", dev):
+            opt = make()
+            # copies: the updates land in place
+            params = [torch.tensor(x, device=d) for x in p0]
+            state = opt.init(params)
+            norms = []
+            for g_np in grads:
+                g = [torch.tensor(x, device=d) for x in g_np]
+                if clip is not None:
+                    g, norm = O.clip_by_global_norm(g, clip)
+                    norms.append(float(norm))
+                upd, state = opt.update(g, state, params)
+                O.apply_updates(params, upd)
+            moments = [x for k in ("mu", "m", "v") for x in state.get(k, [])]
+            out[str(d)] = (state["count"], params + moments, norms)
+        (c_cpu, t_cpu, n_cpu), (c_card, t_card, n_card) = (
+            out["cpu"], out[str(dev)])
+        err = max(float(((a.cpu() - b).abs() / (b.abs() + 1)).max())
+                  for a, b in zip(t_card, t_cpu))
+        bitwise = all(torch.equal(a.cpu(), b) for a, b in zip(t_card, t_cpu))
+        log(f"check optim {name}: card vs cpu {OPTIM_STEPS} steps, count "
+            f"{c_card} vs {c_cpu}, params/state max rel err {err}"
+            f"{' (bitwise)' if bitwise else ''}"
+            + (f", norms {n_card} vs {n_cpu}" if clip else ""))
+        require(c_card == c_cpu == OPTIM_STEPS, f"{name}: count")
+        require(err <= OPTIM_TOL, f"{name}: card disagrees with the CPU")
+        for a, b in zip(n_card, n_cpu):
+            require(math.isclose(a, b, rel_tol=OPTIM_TOL), f"{name}: norm")
+    log("check schedules: " + ", ".join(
+        f"{name} {[float(fn(t)) for t in range(8)]}" for name, fn in (
+            ("warmup_cosine(3e-2, 2, 6)", sched),
+            ("cosine_decay(0.1, 7, 0.05)", O.cosine_decay(0.1, 7, 0.05)))))
+
+
+def same_leaf(torch, a, b) -> bool:
+    """A checkpoint leaf restored: tensors bitwise (any dtype), numbers
+    and integer arrays equal, of the same type."""
+    if isinstance(a, torch.Tensor):
+        return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+            a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
+    return bool(type(a) is type(b) and (a == b if not hasattr(a, "shape")
+                                        else (a == b).all()))
+
+
+def check_ckpt_round_trip(torch, dev) -> None:
+    """Phase 33b: qwen3-1.7b-smoke's async fused state on the card (2
+    workers, tau_max 2, top-k with EF; rings, residuals and momentum
+    filled), a bf16 copy of its params, Python ints and the numpy tau
+    table: saved, then restored in place into zeroed tensors of the same
+    layout: bitwise, every ``data_ptr`` kept."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import tree as T
+    from repro_torch.checkpoint import (latest_step, load_checkpoint,
+                                        save_checkpoint)
+    from repro_torch.configs import get_config
+    from repro_torch.dist.async_engine import AsyncConfig, init_async_state
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.params import init_params, param_specs
+    from repro_torch.optim import constant, momentum
+
+    cfg = get_config("qwen3-1.7b-smoke")
+    defs = TF.model_defs(cfg)
+    specs = param_specs(defs)
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def state_tree(fill: bool):
+        params = init_params(defs, gen, dev)
+        opt_state = momentum(constant(1e-2), 0.9).init(T.leaves(params))
+        acfg = AsyncConfig(tau_max=2, compressor="topk",
+                           topk_ratio=TOPK_RATIO)
+        state = init_async_state(acfg, 2, params, specs)
+        serving = T.tree_map(lambda p: p.to(torch.bfloat16), params)
+        tree = (params, opt_state, state, serving)
+        if fill:
+            opt_state["count"], state["step"] = 7, 5
+            for x in opt_state["mu"] + T.leaves(state["acc"]) + \
+                    T.leaves(state["err"]):
+                x.normal_(generator=gen)
+        else:
+            for x in T.leaves(params) + T.leaves(serving):
+                x.zero_()
+            state["taus"] = np.zeros_like(state["taus"])
+        return tree
+
+    def flat(tree):
+        params, opt_state, state, serving = tree
+        return (T.leaves(params) + [opt_state["count"]] + opt_state["mu"]
+                + T.leaves(state["acc"]) + T.leaves(state["err"])
+                + [state["step"], state["taus"]] + T.leaves(serving))
+
+    saved = state_tree(True)
+    like = state_tree(False)
+    ptrs = [x.data_ptr() for x in flat(like) if isinstance(x, torch.Tensor)]
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_checkpoint(tmp, 5, saved)
+        save_s = time.perf_counter() - t0
+        require(latest_step(tmp) == 5, "latest_step after the save")
+        t0 = time.perf_counter()
+        out = load_checkpoint(tmp, 5, like=like)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        n_bytes = os.path.getsize(path)
+    got, want = flat(out), flat(saved)
+    same = all(same_leaf(torch, a, b) for a, b in zip(got, want))
+    kept = [x.data_ptr() for x in got if isinstance(x, torch.Tensor)] == ptrs
+    log(f"check ckpt round trip on the card: {len(want)} leaves, {n_bytes} "
+        f"bytes, save {save_s:.3f} s, load in place {load_s:.3f} s; bitwise "
+        f"{same}, data_ptr kept {kept}; count {out[1]['count']}, step "
+        f"{out[2]['step']}")
+    require(same and kept, "checkpoint round trip on the card")
+    require(out[1]["count"] == 7 and out[2]["step"] == 5, "ints restored")
+
+
+KILL_RESUME_ARCH = "qwen3-1.7b"
+# a checkpoint is 24 bytes an entry (params, momentum, two ring slots, two
+# EF residuals): 41.3 GB at 28 layers, 13.5 GB at 5 (computed).  The phase
+# writes three (the first oracle's final one, the supervised run's steps 2
+# and 4; the second oracle's final state is compared with the first's file,
+# not written); a run of this script may write at most DISK_WRITE_LIMIT to
+# the host's disk, deleted files included (PERF.md section 4).  5 is the
+# deepest cut whose three writes fit in 0.85 of it (6 layers: 41.1 GiB)
+KILL_RESUME_LAYERS = 5
+KILL_RESUME_WRITES = 3
+DISK_WRITE_LIMIT = 45 * 2 ** 30
+KILL_RESUME_STEPS = 4
+KILL_RESUME_PLAN = {"seed": 0, "events": [
+    {"step": 2, "kind": "kill", "on_attempt": 0},
+    {"step": 1, "kind": "grad_poison"},
+    {"step": 1, "kind": "crash", "worker": 1, "duration": 1}]}
+LOSS_LINE = re.compile(r"^step\s+(\d+)\s+loss\s+(\S+)")
+CKPT_LINE = re.compile(r"^ckpt: (saved|loaded) step (\d+) in ([\d.]+) s"
+                       r"(?: \((\d+) bytes\))?")
+
+
+def kill_resume_argv():
+    return ["--arch", KILL_RESUME_ARCH, "--n-layers",
+            str(KILL_RESUME_LAYERS), "--sync", "async", "--compressor",
+            "topk", "--topk-ratio", str(TOPK_RATIO), "--ef", "--overlap",
+            "--tau-max", "1", "--async-schedule", "uniform", "--workers",
+            "2", "--batch", "4", "--seq", "256", "--steps",
+            str(KILL_RESUME_STEPS), "--ckpt-every", "2", "--device", "cuda",
+            "--seed", "0", "--log-every", "1"]
+
+
+def compare_checkpoints(a_dir: Path, b_dir: Path, step: int):
+    """Leaf by leaf (one leaf in host memory at a time): -> (leaves,
+    bytes, [keys that differ])."""
+    import numpy as np
+
+    name = f"step_{step:08d}.npz"
+    differ, n_bytes = [], 0
+    with np.load(a_dir / name) as a, np.load(b_dir / name) as b:
+        require(sorted(a.files) == sorted(b.files), "checkpoint leaf keys")
+        for key in a.files:
+            x, y = a[key], b[key]
+            n_bytes += x.nbytes
+            if x.dtype != y.dtype or x.shape != y.shape or \
+                    x.tobytes() != y.tobytes():
+                differ.append(key)
+            del x, y
+        return len(a.files), n_bytes, differ
+
+
+def compare_with_checkpoint(ckpt_dir: Path, step: int, tree):
+    """``tree`` against checkpoint ``step`` of ``ckpt_dir``, leaf by leaf in
+    the checkpoint module's own order and encoding, one leaf in host memory
+    at a time, writing nothing: -> (leaves, bytes, [keys that differ])."""
+    import numpy as np
+
+    from repro_torch.checkpoint import ckpt
+
+    leaves: list = []
+    ckpt._describe(tree, leaves)
+    differ, n_bytes = [], 0
+    with np.load(ckpt_dir / f"step_{step:08d}.npz") as a:
+        require(len(a.files) == len(leaves), "checkpoint leaf count")
+        for i, leaf in enumerate(leaves):
+            x, y = a[str(i)], ckpt._host_array(leaf)
+            n_bytes += x.nbytes
+            if x.dtype != y.dtype or x.shape != y.shape or \
+                    x.tobytes() != y.tobytes():
+                differ.append(str(i))
+            del x, y
+    return len(leaves), n_bytes, differ
+
+
+def run_oracle(torch, argv, kernels=None):
+    """One in-process run of the trainer, its standard output captured and
+    logged; -> (history, text, launch counts, peak bytes)."""
+    from repro_torch.launch import train
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels or ():
+        k.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        history = train.main(argv)
+    wall = time.perf_counter() - t0
+    counts = {k.name: k.launches for k in kernels or ()}
+    peak = torch.cuda.max_memory_allocated()
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"  oracle | {line}")
+    log(f"oracle: {len(history)} steps in {wall:.2f} s (model init and "
+        f"checkpoints included); peak memory {peak} bytes; launches "
+        f"{json.dumps(counts)}")
+    return history, text, counts, peak
+
+
+def run_kill_resume(torch, kernels, records) -> None:
+    """Phase 34 (see the module docstring)."""
+    import dataclasses
+
+    from repro_torch import checkpoint as CK
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.params import count_params
+
+    base = get_config(KILL_RESUME_ARCH)
+    cfg = dataclasses.replace(base, n_layers=KILL_RESUME_LAYERS)
+    defs = TF.model_defs(cfg)
+    n_leaves, entries = len(T.leaves(defs)), count_params(defs)
+    full = count_params(TF.model_defs(base))
+    # params, momentum, two ring slots (tau_max 1) and two EF residuals
+    predicted = 24 * entries
+    free = shutil.disk_usage(ROOT).free
+    log(f"kill-resume: {KILL_RESUME_ARCH} at full width, "
+        f"{cfg.n_layers} of {base.n_layers} layers: {n_leaves} leaves, "
+        f"{entries} entries ({full} at full depth); checkpoint about "
+        f"{predicted} bytes (computed; {24 * full} at full depth); "
+        f"{host_resources()}")
+    require(3 * predicted <= 0.8 * free,
+            "three checkpoints do not fit in 80% of the free disk")
+    require(KILL_RESUME_WRITES * predicted <= 0.85 * DISK_WRITE_LIMIT,
+            "the phase's checkpoints would write too much to the disk")
+    total = torch.cuda.get_device_properties(0).total_memory
+    plan = json.dumps(KILL_RESUME_PLAN)
+    argv = kill_resume_argv()
+    dirs = {k: CKPT_ROOT / k for k in ("oracle_a", "oracle_b", "supervised")}
+    save = CK.save_checkpoint
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    CKPT_ROOT.mkdir(parents=True)
+    proc = None
+    try:
+        # the oracle saves its final step only: a save reads the state and
+        # changes nothing in the run
+        oracle_argv = argv + ["--fault-plan", plan, "--fault-attempt", "1",
+                              "--ckpt-every", str(KILL_RESUME_STEPS)]
+        log(f"kill-resume oracle: python -m repro_torch.launch.train "
+            f"{' '.join(oracle_argv)} --ckpt-dir {dirs['oracle_a']}")
+        hist_a, text_a, counts, peak = run_oracle(
+            torch, oracle_argv + ["--ckpt-dir", str(dirs["oracle_a"])],
+            kernels)
+        want = {"topk_ef": n_leaves * 2 * KILL_RESUME_STEPS,
+                "topk_cr_deposit": n_leaves * KILL_RESUME_STEPS}
+        for name, count in counts.items():
+            require(count == want.get(name, 0), f"kill-resume oracle: "
+                    f"{name} launched {count} times, not {want.get(name, 0)}")
+        for name in want:
+            records[name]["kill_resume_launches"] = counts[name]
+        log(f"kill-resume oracle: peak memory {peak / total:.4f} of {total}")
+        require(peak <= 0.9 * total, "peak memory above 90% of the card")
+        require("faults: poisoned=1 skipped=1 ckpt_errors=0" in text_a,
+                "the oracle's fault line")
+        losses_a = [r["loss"] for r in hist_a]
+        require(math.isnan(losses_a[1]) and all(
+            math.isfinite(x) for i, x in enumerate(losses_a) if i != 1),
+            f"oracle losses {losses_a}")
+
+        # determinism: a second uninterrupted run, bitwise the first; its
+        # final save is compared with the first run's file, not written
+        compared = []
+
+        def compare_instead(ckpt_dir, step, tree):
+            compared.append(compare_with_checkpoint(dirs["oracle_a"], step,
+                                                    tree))
+            return str(dirs["oracle_a"] / f"step_{step:08d}.npz")
+
+        CK.save_checkpoint = compare_instead
+        try:
+            hist_b, _, _, _ = run_oracle(
+                torch, oracle_argv + ["--ckpt-dir", str(dirs["oracle_b"])])
+        finally:
+            CK.save_checkpoint = save
+        require(len(compared) == 1, "the second oracle's final state was "
+                "not compared")
+        n, n_bytes, differ = compared[0]
+        same_losses = [f"{x:.6f}" for x in losses_a] == \
+            [f"{r['loss']:.6f}" for r in hist_b]
+        log(f"kill-resume determinism: oracle run twice, the second's final "
+            f"state (compared, not written) against the first's checkpoint: "
+            f"{n} leaves, {n_bytes} bytes, leaves that differ {differ}; "
+            f"losses {losses_a} vs {[r['loss'] for r in hist_b]}")
+        require(not differ and same_losses,
+                "two uninterrupted runs differ on the card")
+        require(not dirs["oracle_b"].exists(), "the second oracle wrote")
+        del hist_b
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"kill-resume: memory allocated before the supervisor "
+            f"{torch.cuda.memory_allocated()} bytes, reserved "
+            f"{torch.cuda.memory_reserved()}")
+
+        plan_path = CKPT_ROOT / "plan.json"
+        plan_path.write_text(plan)
+        cmd = [sys.executable, "-m", "repro_torch.launch.supervisor",
+               "--backoff", "0.5", "--heartbeat", "600", "--fault-plan",
+               str(plan_path), "--", *argv, "--ckpt-dir",
+               str(dirs["supervised"])]
+        log(f"kill-resume: {' '.join(cmd[1:])}")
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src") + (
+            os.pathsep + os.environ["PYTHONPATH"]
+            if os.environ.get("PYTHONPATH") else ""))
+        t_start = time.perf_counter()
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True,
+                                env=env, cwd=ROOT, start_new_session=True)
+        lines = []
+        for line in proc.stdout:
+            lines.append((time.perf_counter() - t_start, line.rstrip("\n")))
+            log(f"  supervised {lines[-1][0]:8.2f} s | {lines[-1][1]}")
+        rc = proc.wait(timeout=60)
+        wall = time.perf_counter() - t_start
+        text = [t for _, t in lines]
+        require(rc == 0, f"supervisor exit {rc}")
+        require(any(t.startswith("fault: SIGKILL at step 2") for t in text),
+                "no SIGKILL at step 2")
+        require("resumed from step 2" in text, "no resume from step 2")
+        require("[supervisor] child completed on attempt 1" in text,
+                "the child did not complete on attempt 1")
+        got = [(int(m.group(1)), m.group(2)) for m in map(LOSS_LINE.match,
+                                                          text) if m]
+        want_steps = [0, 1, 2, 2, 3]
+        require([s for s, _ in got] == want_steps,
+                f"printed steps {[s for s, _ in got]}, not {want_steps}")
+        mism = [(s, loss, f"{losses_a[s]:.6f}") for s, loss in got
+                if loss != f"{losses_a[s]:.6f}"]
+        log(f"kill-resume: printed losses {got}; oracle "
+            f"{[f'{x:.6f}' for x in losses_a]}; mismatches {mism}")
+        require(not mism, "a resumed step's loss differs from the oracle's")
+        n, n_bytes, differ = compare_checkpoints(
+            dirs["oracle_a"], dirs["supervised"], KILL_RESUME_STEPS)
+        log(f"kill-resume: final checkpoints {n} leaves, {n_bytes} bytes of "
+            f"arrays, leaves that differ from the oracle's {differ}")
+        require(not differ, "the resumed run's checkpoint differs")
+        t_kill = next(t for t, s in lines if s.startswith("fault: SIGKILL"))
+        i_resume = next(i for i, (_, s) in enumerate(lines)
+                        if s == "resumed from step 2")
+        t_first = next(t for t, s in lines[i_resume:]
+                       if LOSS_LINE.match(s))
+        io_lines = [m.groups() for m in map(CKPT_LINE.match, text) if m]
+        oracle_io = [m.groups() for m in map(CKPT_LINE.match,
+                                             text_a.splitlines()) if m]
+        size = os.path.getsize(dirs["supervised"] /
+                               f"step_{KILL_RESUME_STEPS:08d}.npz")
+        log(f"kill-resume: checkpoint {size} bytes on disk (predicted "
+            f"{predicted}); supervised saves/loads {io_lines}; oracle saves "
+            f"{oracle_io}; kill to first resumed step {t_first - t_kill:.2f} "
+            f"s; supervised wall {wall:.2f} s")
+    finally:
+        CK.save_checkpoint = save
+        if proc is not None and proc.poll() is None:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+        shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+
+
+FAULT_SERVE_LAYERS = 8
+FAULT_SERVE_PLAN = {"seed": 0, "events": [
+    {"step": 4, "kind": "logit_poison"},
+    {"step": 6, "kind": "page_exhaust", "param": 16.0, "duration": 3}]}
+# the reference's launcher quarantines 4 requests on this schedule and plan:
+# the poisoned request's NaN reaches every token of its group through the
+# MoE's dense dispatch product, and requests admitted later read the pages
+# it left (test_serve_fault_plan_card_schedule_matches_reference)
+FAULT_SERVE_QUARANTINED = 4
+
+
+def run_faulted_serve(torch, kernels) -> None:
+    """Phase 35 (see the module docstring)."""
+    _, clean = run_serve(torch, kernels, layers=FAULT_SERVE_LAYERS)
+    clean_toks = [list(map(int, t)) for t in clean["tokens"]]
+    del clean
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts, out = run_serve(torch, kernels, layers=FAULT_SERVE_LAYERS,
+                            extra=("--fault-plan",
+                                   json.dumps(FAULT_SERVE_PLAN)))
+    sched, engine = out["scheduler"], out["engine"]
+    toks = [list(map(int, t)) for t in out["tokens"]]
+    first = next(((i, j, a[j], b[j]) for i, (a, b) in
+                  enumerate(zip(toks, clean_toks)) for j in range(len(a))
+                  if a[j] != b[j]), None)
+    log(f"faulted serve: quarantined {sched.quarantined}, failed "
+        f"{sched.failed}, rejected {sched.rejected}, clock {sched.clock}, "
+        f"{engine.steps} decode steps, check_finite {engine.check_finite}; "
+        f"greedy tokens equal to the fault-free run's: {first is None}"
+        + ("" if first is None else
+           f" (first difference: request {first[0]} token {first[1]}: "
+           f"{first[2]} against {first[3]})"))
+    require(engine.check_finite, "logit_poison did not arm check_finite")
+    require(sched.failed == 0
+            and sched.quarantined == FAULT_SERVE_QUARANTINED,
+            f"faulted serve: {sched.failed} failed, {sched.quarantined} "
+            f"quarantined (the reference: 0 and {FAULT_SERVE_QUARANTINED})")
+    require(counts["swa_decode_attention"] > 0, "K9 never launched")
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2596,6 +3109,7 @@ def main() -> int:
     smi = smi_line()
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    log(f"host: {host_resources()}")
     t0 = time.perf_counter()
     reports = _build.build_all()
     log(f"build: {len(reports)} CUDA libraries in "
@@ -2740,6 +3254,20 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     run_family_serves(torch, all_kernels())
+
+    # the robustness slice: the optimizers and a checkpoint round trip
+    # (small), the supervised kill and resume of the main path, then
+    # faulted serving, each with every kernel's counter zeroed just before
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_optim(torch, dev)
+    check_ckpt_round_trip(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_kill_resume(torch, all_kernels(), records)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_faulted_serve(torch, all_kernels())
     log(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -2749,7 +3277,7 @@ def main() -> int:
         "PERF.md) " + ", ".join(f"{name} {ms} ms"
                                 for name, ms in EARLIER_MS.items()))
     extra = ("sector_bound_ms", "rwkv6_launches", "moonshot_launches",
-             "zamba2_launches")
+             "zamba2_launches", "kill_resume_launches")
     line = [{k: records[kern.name][k] for k in keys
              + tuple(k for k in extra if k in records[kern.name])}
             for kern in all_kernels()]

@@ -186,10 +186,14 @@ class AsyncTrainStep:
             del grads
             losses.append(loss)
             if acfg.skip_nonfinite:
-                finite = tree_all_finite(flat_g)
-                flat_g = [torch.where(finite, g, torch.zeros_like(g))
-                          for g in flat_g]
-                bad.append(1.0 - finite.float())
+                # a poisoned worker transmits zeros (read on the host
+                # once; the gradient leaves are zeroed in place)
+                finite = bool(tree_all_finite(flat_g))
+                if not finite:
+                    for g in flat_g:
+                        g.zero_()
+                bad.append(torch.tensor(0.0 if finite else 1.0,
+                                        device=device))
             if acfg.track_gap:
                 fresh = ([g.float() for g in flat_g] if fresh is None else
                          [f + g for f, g in zip(fresh, flat_g)])

@@ -119,36 +119,39 @@ def tree_all_finite(leaves) -> torch.Tensor:
 def guarded_update(opt, grads, opt_state, params, *, skip_nonfinite: bool):
     """Optimizer update of the ``params`` leaves in place, with the
     optional skip-step guard: when ``skip_nonfinite`` and any gradient leaf
-    is NaN/Inf, params and optimizer state keep their old values.
-    Returns ``(params, opt_state, nonfinite)``."""
-    if not skip_nonfinite:
-        updates, opt_state = opt.update(grads, opt_state, params)
-        apply_updates(params, updates)
-        return params, opt_state, torch.zeros((), device=params[0].device)
-    finite = tree_all_finite(grads)
-    old_p = [p.clone() for p in params]
-    old_mu = [m.clone() for m in opt_state.get("mu", [])]
-    updates, new_state = opt.update(grads, opt_state, params)
+    is NaN/Inf, params and the whole optimizer state (``count`` included)
+    keep their old values, as the reference's ``jnp.where`` over every
+    leaf does.  The guard reads the finiteness flag on the host once and
+    then either applies the update or skips it, so it keeps no copy of any
+    leaf.  Returns ``(params, opt_state, nonfinite)``; with the guard off
+    no finiteness reduction runs."""
+    if skip_nonfinite:
+        finite = bool(tree_all_finite(grads))
+        if not finite:
+            return params, opt_state, torch.ones((), device=params[0].device)
+    updates, opt_state = opt.update(grads, opt_state, params)
     apply_updates(params, updates)
-    for p, o in zip(params, old_p):
-        p.copy_(torch.where(finite, p, o))
-    for m, o in zip(new_state.get("mu", []), old_mu):
-        m.copy_(torch.where(finite, m, o))
-    return params, new_state, 1.0 - finite.float()
+    return params, opt_state, torch.zeros((), device=params[0].device)
 
 
-def make_train_step(cfg: ArchConfig, opt, grad_accum: int = 1):
+def make_train_step(cfg: ArchConfig, opt, grad_accum: int = 1, *,
+                    skip_nonfinite: bool = False):
     """Exact-sync step ``(params, opt_state, batch) -> (params, opt_state,
     metrics)`` on the whole batch (over ``grad_accum`` microbatches) — the
-    perfectly-consistent baseline every relaxation is compared against."""
+    perfectly-consistent baseline every relaxation is compared against.
+    ``skip_nonfinite`` arms the :func:`guarded_update` skip-step guard and
+    adds a ``nonfinite`` 0/1 metric; off (the default) the step is
+    unchanged."""
 
     def step(params, opt_state, batch):
         loss, parts, grads = mean_grads(cfg, params, batch, grad_accum)
         flat_g = T.leaves(grads)
         metrics = {"loss": loss, "grad_norm": global_norm(flat_g), **parts}
-        _, opt_state, _ = guarded_update(opt, flat_g, opt_state,
-                                         T.leaves(params),
-                                         skip_nonfinite=False)
+        _, opt_state, nonfinite = guarded_update(
+            opt, flat_g, opt_state, T.leaves(params),
+            skip_nonfinite=skip_nonfinite)
+        if skip_nonfinite:
+            metrics["nonfinite"] = nonfinite
         return params, opt_state, metrics
 
     return step

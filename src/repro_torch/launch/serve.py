@@ -28,7 +28,20 @@ the dense legacy loop or the continuous-batching engine.
 f32); prompts come from ``np.random.default_rng(--seed)``.  Both engines
 keep every step's tokens on the device and fetch them once at the end.
 ``--temperature/--top-k`` switch both from greedy to sampled decoding.
-``--devices > 1`` and ``--fault-plan`` are not ported yet and raise.
+``--devices > 1`` is not ported yet and raises.
+
+``--fault-plan`` (continuous engine; a path or inline JSON,
+`repro_torch.faults.FaultPlan`) drives the engine's fault paths through
+`repro_torch.faults.ServeFaultInjector`: ``logit_poison`` NaN-poisons a
+live request's KV (the engine then checks every decode step's logits and
+the scheduler quarantines the request: evicted and requeued once, failed
+on a second offense) and ``page_exhaust`` holds pages of the pool for a
+few ticks (retry-after backpressure):
+
+    python -m repro_torch.launch.serve --device cpu \\
+        --arch mixtral-8x7b-smoke --engine continuous \\
+        --prompt-lens 45,16,30,8 --gen 8 --batch 2 --page-size 8 \\
+        --fault-plan '{"events": [{"step": 4, "kind": "logit_poison"}]}'
 """
 from __future__ import annotations
 
@@ -56,7 +69,9 @@ def _parse(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--fault-plan", default="",
-                    help="fault plan of the continuous engine (not ported)")
+                    help="continuous engine: repro_torch.faults plan (path "
+                         "or inline JSON) — logit_poison/page_exhaust "
+                         "events drive the quarantine/backpressure paths")
     return ap.parse_args(argv)
 
 
@@ -118,20 +133,34 @@ def _run_continuous(args, cfg, params, sample, device):
         page_size=ps, max_requests=min(args.batch, len(lens)),
         max_pages_per_seq=per_req,
         num_pages=sum(-(-(s + args.gen) // ps) for s in lens))
-    engine = StepEngine(cfg, params, pcfg, sample=sample, seed=args.seed)
-    sched = ContinuousScheduler(engine, queue_limit=4 * len(lens))
+    plan = injector = None
+    if args.fault_plan:
+        from repro_torch.faults import FaultPlan, ServeFaultInjector
+        plan = FaultPlan.load(args.fault_plan)
+    engine = StepEngine(cfg, params, pcfg, sample=sample, seed=args.seed,
+                        check_finite=plan is not None
+                        and "logit_poison" in plan.kinds())
+    if plan is not None:
+        injector = ServeFaultInjector(plan, engine)
+    sched = ContinuousScheduler(
+        engine, queue_limit=4 * len(lens), quarantine=plan is not None,
+        on_tick=injector.on_tick if injector else None)
     rng = np.random.default_rng(args.seed)
     trace = [Request(rid=i, max_new=args.gen, arrival=0,
                      prompt=rng.integers(0, cfg.vocab_size, size=s,
                                          dtype=np.int32))
              for i, s in enumerate(lens)]
     toks = sched.run(trace)
+    if injector is not None:
+        injector.release_all()
     engine.alloc.check()
     st = sched.stats()
     print(f"continuous: {len(lens)} requests in {sched.clock} steps, "
           f"{engine.steps} decode steps, p50={st['p50']:.0f} "
           f"p99={st['p99']:.0f} latency steps, rejected={sched.rejected} "
-          f"rejected_frac={st['rejected_frac']:.3f}", flush=True)
+          f"rejected_frac={st['rejected_frac']:.3f} "
+          f"quarantined={st['quarantined']} failed={st['failed']}",
+          flush=True)
     gen = [toks.get(i, np.zeros((0,), np.int32)) for i in range(len(lens))]
     secs = engine.prefill_seconds()
     return gen, engine, sched, [secs[i] for i in range(len(lens))]
@@ -147,9 +176,6 @@ def main(argv=None, *, cfg=None) -> dict:
     if args.devices > 1:
         raise NotImplementedError(
             "--devices > 1: sharded serving is not ported yet (one card)")
-    if args.fault_plan:
-        raise NotImplementedError("--fault-plan: the faults runtime is not "
-                                  "ported yet")
     import torch
 
     from repro_torch.configs import get_config

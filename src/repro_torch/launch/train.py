@@ -1,5 +1,6 @@
 """End-to-end trainer of the port (counterpart of ``repro.launch.train``,
-without its checkpointing, fault injection and tensor parallelism).
+with its checkpointing and fault injection, without its tensor
+parallelism).
 
     python -m repro_torch.launch.train --arch qwen3-1.7b --sync async \\
         --compressor topk --topk-ratio 0.0625 --tau-max 2 --workers 2 \\
@@ -25,11 +26,34 @@ mass of crashed or delayed workers.  A step's line is printed every
 ``--workers N`` runs N data-parallel workers in this process (each takes a
 contiguous batch shard).  ``--device`` defaults to ``cuda``; without a card
 the trainer raises unless ``--device cpu`` is given — it never carries on on
-the CPU by itself.
+the CPU by itself.  ``--n-layers N`` cuts the arch to its first N layers at
+full width (0: its own depth; more than its depth is refused).
+
+Checkpoints and faults, as the reference's:
+
+    python -m repro_torch.launch.train --device cpu --arch qwen3-1.7b-smoke \\
+        --sync async --compressor topk --tau-max 2 --steps 8 \\
+        --ckpt-dir ckpt --ckpt-every 2 --fault-plan plan.json
+
+``--ckpt-dir`` resumes from its newest loadable checkpoint
+(`repro_torch.checkpoint.latest_step`), in place into the state this run
+has just allocated, and prints ``resumed from step N``; a checkpoint of
+another configuration (strategy, ``--tau-max``, ``--compressor``, ``--ef``,
+``--overlap``, a resized tau table) raises ``ValueError``.  Every
+``--ckpt-every`` steps it saves ``(params, opt_state, sync_state)``: the
+delay rings, EF residuals, tau table and step counters travel with the
+params, so a resumed run continues bitwise where the killed one was.  A
+save is best effort: an ``OSError`` is printed and training goes on.
+``--fault-plan`` (a path or inline JSON, `repro_torch.faults.FaultPlan`)
+with ``--fault-attempt`` (the supervisor's restart count): ``grad_poison``
+steps scale the loss by NaN/Inf and arm the skip-step guard (``--sync
+exact`` or ``async`` only), tau events rewrite the tau table, ``ckpt_io``
+fails a save and ``kill`` SIGKILLs the process after its step.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 
@@ -63,6 +87,14 @@ def _parse(argv=None):
                          "--no-overlap keeps the densified delivery")
     ap.add_argument("--workers", type=int, default=1,
                     help="in-process data-parallel workers")
+    ap.add_argument("--n-layers", type=int, default=0,
+                    help="cut the arch to its first N layers (0: all)")
+    # fault injection (repro_torch.faults): a plan path or inline JSON; the
+    # supervisor forwards --fault-attempt so kill events fire exactly once
+    ap.add_argument("--fault-plan", default="")
+    ap.add_argument("--fault-attempt", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
@@ -81,19 +113,31 @@ def resolve_device(name: str):
     return device
 
 
+_STATE_MISMATCH = (
+    "checkpointed sync/async state does not match the current --sync "
+    "configuration (different strategy, --tau-max, --compressor, --ef, "
+    "--overlap, or a --steps change that resized the tau table?) — delay "
+    "rings and tau schedules cannot be reinterpreted; resume with the "
+    "original flags or use a fresh --ckpt-dir")
+
+
 def main(argv=None, *, cfg=None) -> list[dict]:
-    """Run the configured training; returns one metrics dict per step
-    (``loss``, ``gap2_over_alpha2``, ``stale_gap2``, ``mean_tau``,
-    ``step_s``; a metric the strategy does not have is 0).  ``cfg`` (an
-    ``ArchConfig``) overrides ``--arch``, e.g. a config cut in depth.
-    Every arch trains on the synthetic token stream; a frontend arch
-    (vision, audio) then embeds its tokens, as the reference's launcher
-    does."""
+    """Run the configured training; returns one metrics dict per step run
+    by this process (``step``, ``loss``, ``gap2_over_alpha2``,
+    ``stale_gap2``, ``mean_tau``, ``nonfinite``, ``step_s``; a metric the
+    strategy does not have is 0).  ``cfg`` (an ``ArchConfig``) overrides
+    ``--arch``, e.g. a config cut in depth.  Every arch trains on the
+    synthetic token stream; a frontend arch (vision, audio) then embeds its
+    tokens, as the reference's launcher does."""
     args = _parse(argv)
+    import dataclasses
+
     import numpy as np
     import torch
 
     from repro_torch import tree as T
+    from repro_torch.checkpoint import (latest_step, load_checkpoint,
+                                        save_checkpoint)
     from repro_torch.configs import get_config
     from repro_torch.core.scheduler import SyncConfig
     from repro_torch.data.pipeline import SyntheticLMDataset, to_device
@@ -115,6 +159,22 @@ def main(argv=None, *, cfg=None) -> list[dict]:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
             False
     cfg = cfg if cfg is not None else get_config(args.arch)
+    if args.n_layers:
+        if not 0 < args.n_layers <= cfg.n_layers:
+            raise SystemExit(f"--n-layers {args.n_layers}: {cfg.name} has "
+                             f"{cfg.n_layers} layers")
+        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
+    injector = None
+    if args.fault_plan:
+        from repro_torch.faults import FaultPlan, TrainFaultInjector
+        injector = TrainFaultInjector(FaultPlan.load(args.fault_plan),
+                                      attempt=args.fault_attempt)
+    guard = injector is not None and injector.has_poison
+    # the poison guard only arms the paths that implement it; a poison plan
+    # with another --sync would corrupt params silently, so refuse it
+    if guard and args.sync not in ("exact", "async"):
+        raise SystemExit("--fault-plan with grad_poison events needs "
+                         "--sync exact or async (the skip-step guard)")
     defs = TF.model_defs(cfg)
     specs = param_specs(defs)
     gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -125,12 +185,13 @@ def main(argv=None, *, cfg=None) -> list[dict]:
                               seed=args.seed)
 
     if args.sync == "exact":
-        exact = make_train_step(cfg, opt)
+        exact = make_train_step(cfg, opt, skip_nonfinite=guard)
 
         def run(params, opt_state, state, batch):
             params, opt_state, m = exact(params, opt_state, batch)
             return params, opt_state, state, m
-        state = None
+        # the reference's exact state: a step counter the step never moves
+        state = {"step": 0}
     elif args.sync != "async":
         scfg = SyncConfig(strategy=args.sync, topk_ratio=args.topk_ratio,
                           beta=args.beta, budget_b=args.budget_b,
@@ -138,6 +199,10 @@ def main(argv=None, *, cfg=None) -> list[dict]:
         state = init_dist_sync_state(scfg, args.workers, params)
         run = make_elastic_train_step(cfg, opt, scfg, args.workers, specs)
     else:
+        # the horizon is decoupled from --steps (up to 1024), so a resume
+        # with a larger --steps reuses the checkpointed tau table; the
+        # crash/rejoin schedules place their outages at horizon fractions,
+        # so theirs follows the run (the resume check holds it)
         horizon = max(args.steps, 1) \
             if args.async_schedule in ("crash", "rejoin") \
             else max(args.steps, 1024)
@@ -145,13 +210,43 @@ def main(argv=None, *, cfg=None) -> list[dict]:
             tau_max=args.tau_max, schedule=args.async_schedule,
             compressor=args.compressor, error_feedback=args.ef,
             topk_ratio=args.topk_ratio, horizon=horizon, seed=args.seed,
-            crash_subst=args.crash_subst, overlap=args.overlap)
+            crash_subst=args.crash_subst, skip_nonfinite=guard,
+            overlap=args.overlap)
         state = init_async_state(acfg, args.workers, params, specs)
+        if injector is not None and injector.plan.has_tau_events:
+            # crash/rejoin/delay/drop faults rewrite the host tau table; a
+            # resume restores the same rewritten table from the checkpoint
+            state["taus"] = injector.plan.apply_to_taus(state["taus"],
+                                                        args.tau_max)
         run = make_async_train_step(cfg, opt, acfg, args.workers, specs)
 
+    step_idx = 0
+    if args.ckpt_dir:
+        last = latest_step(args.ckpt_dir)
+        if last is not None:
+            t0 = time.perf_counter()
+            try:
+                params, opt_state, state = load_checkpoint(
+                    args.ckpt_dir, last, like=(params, opt_state, state))
+            except ValueError as e:
+                raise ValueError(f"{_STATE_MISMATCH} ({e})") from e
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            load_s = time.perf_counter() - t0
+            step_idx = last
+            print(f"resumed from step {last}", flush=True)
+            print(f"ckpt: loaded step {last} in {load_s:.3f} s", flush=True)
+
     history = []
-    for t in range(args.steps):
+    for t in range(step_idx, args.steps):
         batch = to_device(data.batch(t), device)
+        if guard:
+            # the loss_scale channel: ones normally, NaN/Inf on grad_poison
+            # steps; present on every step once armed (a scale of 1.0 is
+            # bitwise neutral)
+            batch["loss_scale"] = torch.full(
+                (args.batch,), injector.loss_scale(t), dtype=torch.float32,
+                device=device)
         t0 = time.perf_counter()
         params, opt_state, state, metrics = run(params, opt_state, state,
                                                 batch)
@@ -162,20 +257,45 @@ def main(argv=None, *, cfg=None) -> list[dict]:
                "gap2_over_alpha2": float(metrics.get("gap2_over_alpha2",
                                                      0.0)),
                "stale_gap2": float(metrics.get("stale_gap2", 0.0)),
-               "mean_tau": float(metrics.get("mean_tau", 0.0))}
+               "mean_tau": float(metrics.get("mean_tau", 0.0)),
+               "nonfinite": float(metrics.get("nonfinite", 0.0))}
         history.append(row)
-        if t % args.log_every:
-            continue
-        # gap2/a2 as the reference prints it: the elastic gap, or the
-        # bounded-staleness engine's stale gap
-        gap = row["stale_gap2"] if args.sync == "async" \
-            else row["gap2_over_alpha2"]
-        tau = f"  tau {row['mean_tau']:.2f}" if args.sync == "async" else ""
-        print(f"step {t:5d}  loss {row['loss']:.6f}  gap2/a2 {gap:.4g}"
-              f"{tau}  step_s {row['step_s']:.4f}", flush=True)
-    if history:
-        print(f"final loss {np.mean([r['loss'] for r in history[-10:]]):.4f}",
+        if t % args.log_every == 0:
+            # gap2/a2 as the reference prints it: the elastic gap, or the
+            # bounded-staleness engine's stale gap
+            gap = row["stale_gap2"] if args.sync == "async" \
+                else row["gap2_over_alpha2"]
+            tau = f"  tau {row['mean_tau']:.2f}" if args.sync == "async" \
+                else ""
+            print(f"step {t:5d}  loss {row['loss']:.6f}  gap2/a2 {gap:.4g}"
+                  f"{tau}  step_s {row['step_s']:.4f}", flush=True)
+        if args.ckpt_dir and args.ckpt_every and \
+                (t + 1) % args.ckpt_every == 0:
+            t0 = time.perf_counter()
+            try:
+                if injector is not None:
+                    injector.check_ckpt_io(t + 1)
+                path = save_checkpoint(args.ckpt_dir, t + 1,
+                                       (params, opt_state, state))
+                print(f"ckpt: saved step {t + 1} in "
+                      f"{time.perf_counter() - t0:.3f} s "
+                      f"({os.path.getsize(path)} bytes)", flush=True)
+            except OSError as e:
+                # best effort: keep training; the next save (or the torn
+                # checkpoint skip in latest_step) covers recovery
+                print(f"ckpt save failed at step {t + 1}: {e}", flush=True)
+        if injector is not None:
+            injector.maybe_kill(t)
+    losses = [r["loss"] for r in history]
+    if injector is not None:
+        skipped = sum(r["nonfinite"] > 0 for r in history)
+        print(f"faults: poisoned={injector.poisoned_steps} "
+              f"skipped={skipped} ckpt_errors={injector.ckpt_errors}",
               flush=True)
+        finite = [x for x in losses[-10:] if np.isfinite(x)]
+        losses = finite if finite else losses
+    if history:
+        print(f"final loss {np.mean(losses[-10:]):.4f}", flush=True)
     return history
 
 

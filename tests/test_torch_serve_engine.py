@@ -321,9 +321,17 @@ def test_launcher_serves_on_the_cpu():
                        "--batch", "2", "--temperature", "0.8",
                        "--top-k", "5"])
     assert [len(t) for t in loop["tokens"]] == [3, 3]
-    for argv in (["--devices", "2"], ["--fault-plan", "{}"]):
-        with pytest.raises(NotImplementedError):
-            serve.main(["--device", "cpu", *argv])
+    with pytest.raises(NotImplementedError):
+        serve.main(["--device", "cpu", "--devices", "2"])
+    # --fault-plan is ported: a plan with no events serves as without one
+    planned = serve.main(["--device", "cpu", "--arch", "mixtral-8x7b-smoke",
+                          "--engine", "continuous", "--prompt-lens",
+                          "16,8,24", "--gen", "4", "--batch", "2",
+                          "--page-size", "8", "--fault-plan",
+                          '{"events": []}'])
+    assert [list(t) for t in planned["tokens"]] == \
+        [list(t) for t in out["tokens"]]
+    assert planned["scheduler"].quarantined == 0
 
 
 def test_launcher_default_device_raises_without_cuda():
