@@ -201,13 +201,28 @@ Phases (any failure exits non-zero):
     reference's count on this schedule, held on the CPU by
     ``tests/test_torch_faults.py``), every page freed, K9 once a layer a
     decode step, the greedy tokens against the fault-free run's (the first
-    difference logged).
+    difference logged);
+36. data-parallel workers over ``torch.distributed``: full-width
+    qwen3-1.7b cut to ``DIST_LAYERS`` of 28 layers, 2 workers over 2 ranks
+    (one process each, spawned by ``repro_torch.launch.train.main`` with
+    ``--ranks 2 --dist-backend gloo``) sharing cuda:0, seq 256, batch 4:
+    4 async top-k steps at tau_max 2 (each rank exactly 52 ``topk_ef`` and
+    52 ``topk_cr_deposit`` launches, read by the rank and reported), then
+    2 ``--sync topk_ef`` steps (26 ``topk_ef`` and 26 ``topk_cr_reduce`` a
+    rank); before each, the in-process oracle (``--workers 2``, 104 + 52 and
+    52 + 26 launches), whose losses the ranks' equal bitwise, and whose
+    SHA-256 per leaf of the final params, optimizer state and sync state
+    equals the one rank 0 hands back with every rank's rows gathered; each
+    rank's peak memory, step wall and collective bytes a step logged, the
+    summed peak under 0.90 of the card; ``--ranks 2`` with ``nccl`` (named
+    or by default) on the one card raises before any step.
 
 Phase 1 also logs the free disk of the checkpoint directory's filesystem
 and the free host memory.  The last three lines of standard output are the
 kernels' JSON record (K1, K2 and K4 also carry ``rwkv6_launches``,
-``moonshot_launches`` and ``zamba2_launches``, K1 and K2
-``kill_resume_launches``, K10 ``zamba2_launches``), the card's name and
+``moonshot_launches``, ``zamba2_launches`` and ``ranks_launches`` (each
+rank's count, by phase 36's run), K1 and K2 ``kill_resume_launches``, K10
+``zamba2_launches``), the card's name and
 power limit, and the result ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -2951,7 +2966,8 @@ def run_kill_resume(torch, kernels, records) -> None:
         # final save is compared with the first run's file, not written
         compared = []
 
-        def compare_instead(ckpt_dir, step, tree):
+        def compare_instead(ckpt_dir, step, tree, *, write=True):
+            require(write, "the in-process oracle's save does not write")
             compared.append(compare_with_checkpoint(dirs["oracle_a"], step,
                                                     tree))
             return str(dirs["oracle_a"] / f"step_{step:08d}.npz")
@@ -3087,6 +3103,154 @@ def run_faulted_serve(torch, kernels) -> None:
     del out
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# phase 36: data-parallel workers over two torch.distributed ranks
+DIST_ARCH = "qwen3-1.7b"
+DIST_LAYERS = 12
+DIST_RUNS = (("async", ["--sync", "async", "--compressor", "topk",
+                        "--ef", "--overlap", "--tau-max", "2",
+                        "--async-schedule", "uniform"], 4),
+             ("topk_ef", ["--sync", "topk_ef"], 2))
+# bytes a rank holds an entry at tau_max 2 with one worker (params,
+# momentum, one EF residual, three ring slots, a gradient, the applied
+# update, the transients of the step): 36.4 at this phase's peak on an
+# H100 80GB HBM3.  Besides the summed peak (0.7835 of the card at 12
+# layers) the card holds three CUDA contexts, about 3 GB of each rank's
+# cache that is reserved but not allocated, and what this process keeps
+# reserved after phases 1-35 (4.85 GB): 14 layers ran out of memory in the
+# whole script, and 13 would leave about 2 GB
+DIST_BYTES_PER_ENTRY = 36.4
+
+
+def dist_argv(flags, steps):
+    return ["--arch", DIST_ARCH, "--n-layers", str(DIST_LAYERS), *flags,
+            "--topk-ratio", str(TOPK_RATIO), "--workers", "2", "--batch",
+            "4", "--seq", "256", "--steps", str(steps), "--device", "cuda",
+            "--seed", "0", "--log-every", "1"]
+
+
+def run_dist(torch, kernels, records) -> None:
+    """Phase 36 (see the module docstring)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.params import count_params
+
+    base = get_config(DIST_ARCH)
+    cfg = dataclasses.replace(base, n_layers=DIST_LAYERS)
+    n_leaves = model_leaves(DIST_ARCH, cfg)
+    entries = count_params(TF.model_defs(cfg))
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"dist: {DIST_ARCH} at full width, {DIST_LAYERS} of "
+        f"{base.n_layers} layers: {n_leaves} leaves, {entries} entries; two "
+        f"ranks of one worker each on cuda:0 over gloo; "
+        f"{DIST_BYTES_PER_ENTRY} B an entry a rank, "
+        f"{2 * DIST_BYTES_PER_ENTRY * entries / total:.3f} of the card for "
+        f"both (computed); {host_resources()}")
+
+    # nccl runs one rank a card: two ranks on this one card must raise
+    # before any step, named or by default
+    for extra in (["--dist-backend", "nccl"], []):
+        try:
+            train.main(dist_argv(DIST_RUNS[1][1], 1) + ["--ranks", "2",
+                                                        *extra])
+        except ValueError as e:
+            log(f"dist: --ranks 2 {' '.join(extra) or '(default backend)'} "
+                f"on one card refused: {e}")
+            require("nccl runs one rank a card" in str(e),
+                    f"the nccl refusal's reason: {e}")
+        else:
+            require(False, "two nccl ranks on one card did not raise")
+
+    for name, flags, steps in DIST_RUNS:
+        argv = dist_argv(flags, steps)
+        want_one = {"topk_ef": n_leaves * steps}
+        want_one["topk_cr_deposit" if name == "async" else
+                 "topk_cr_reduce"] = n_leaves * steps
+        want_oracle = {k: 2 * v if k == "topk_ef" else v
+                       for k, v in want_one.items()}
+
+        # the oracle: both workers in this process
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        rep_o = {}
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            hist_o = train.main(argv, report=rep_o)
+        wall_o = time.perf_counter() - t0
+        counts = {k.name: k.launches for k in kernels}
+        peak_o = torch.cuda.max_memory_allocated()
+        for line in buf.getvalue().splitlines():
+            log(f"  oracle | {line}")
+        log(f"dist {name} oracle (--workers 2, one process): {wall_o:.2f} s "
+            f"with init and digests; peak {peak_o / total:.4f} of the card; "
+            f"step_s {[round(r['step_s'], 4) for r in hist_o]}; wire bytes "
+            f"a step {rep_o['ranks'][0]['wire']}; digests "
+            f"{rep_o['ranks'][0]['digest_s']:.2f} s; launches "
+            f"{json.dumps(counts)}")
+        for k, count in counts.items():
+            require(count == want_oracle.get(k, 0), f"dist {name} oracle: "
+                    f"{k} launched {count} times, not {want_oracle.get(k, 0)}")
+        require(rep_o["ranks"][0]["launches"] == counts,
+                "the oracle's report disagrees with the counters")
+        losses_o = [r["loss"] for r in hist_o]
+        del hist_o
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"dist: this process holds {torch.cuda.memory_allocated()} bytes "
+            f"allocated, {torch.cuda.memory_reserved()} reserved; free on "
+            f"the card {torch.cuda.mem_get_info()[0]}")
+
+        # the ranks: two processes sharing cuda:0
+        for k in kernels:
+            k.launches = 0
+        rep_r = {}
+        t0 = time.perf_counter()
+        hist_r = train.main(argv + ["--ranks", "2", "--dist-backend", "gloo"],
+                            report=rep_r)
+        wall_r = time.perf_counter() - t0
+        require(all(k.launches == 0 for k in kernels),
+                "the parent launched a kernel")
+        peaks = [r["max_memory_allocated"] for r in rep_r["ranks"]]
+        for r in rep_r["ranks"]:
+            log(f"dist {name} rank {r['rank']} on {r['device']}: step_s "
+                f"{[round(x, 4) for x in r['step_s']]}; wire bytes a step "
+                f"{r['wire']}; peak {r['max_memory_allocated']} bytes "
+                f"({r['max_memory_allocated'] / total:.4f} of the card); "
+                f"digests {r['digest_s']:.2f} s; launches "
+                f"{json.dumps(r['launches'])}")
+            for k, count in r["launches"].items():
+                require(count == want_one.get(k, 0), f"dist {name} rank "
+                        f"{r['rank']}: {k} launched {count} times, not "
+                        f"{want_one.get(k, 0)}")
+        log(f"dist {name}: 2 ranks {wall_r:.2f} s (spawn, init and digests "
+            f"included); summed peak {sum(peaks)} bytes, "
+            f"{sum(peaks) / total:.4f} of the card")
+        require(sum(peaks) <= 0.9 * total,
+                "the ranks' summed peak is above 90% of the card")
+        losses_r = [r["loss"] for r in hist_r]
+        differ = [i for i, (a, b) in enumerate(zip(rep_o["digests"],
+                                                   rep_r["digests"]))
+                  if a != b]
+        log(f"dist {name}: losses {losses_r} (ranks) vs the oracle's "
+            f"{losses_o}; {len(rep_r['digests'])} leaf digests (SHA-256), "
+            f"leaves that differ {differ}")
+        require([x.hex() for x in losses_r] == [x.hex() for x in losses_o],
+                "the ranks' losses differ from the in-process oracle's")
+        require(len(rep_r["digests"]) == len(rep_o["digests"])
+                and not differ, "the ranks' final state differs from the "
+                "oracle's")
+        for k in want_one:
+            records[k].setdefault("ranks_launches", {})[name] = [
+                r["launches"][k] for r in rep_r["ranks"]]
+        del hist_r
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -3268,6 +3432,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     run_faulted_serve(torch, all_kernels())
+
+    # data-parallel workers over two ranks sharing the card, against the
+    # in-process oracle, every kernel's counter zeroed just before each run
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_dist(torch, all_kernels(), records)
     log(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -3277,7 +3447,7 @@ def main() -> int:
         "PERF.md) " + ", ".join(f"{name} {ms} ms"
                                 for name, ms in EARLIER_MS.items()))
     extra = ("sector_bound_ms", "rwkv6_launches", "moonshot_launches",
-             "zamba2_launches", "kill_resume_launches")
+             "zamba2_launches", "kill_resume_launches", "ranks_launches")
     line = [{k: records[kern.name][k] for k in keys
              + tuple(k for k in extra if k in records[kern.name])}
             for kern in all_kernels()]

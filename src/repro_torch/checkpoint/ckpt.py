@@ -24,9 +24,19 @@ holds one leaf at a time.  With ``like=``, :func:`load_checkpoint` restores
 in place into the tensors and arrays of ``like``, leaf by leaf, after
 checking the whole structure against the sidecar, so no second copy of
 the state is allocated on the device.
+
+Workers over ranks: a tree may hold `repro_torch.dist.sharding.WorkerRows`
+leaves (a rank's rows of a per-worker leaf, ``sharding.gather_state``).
+Such a leaf is written as the whole ``(p, ...)`` leaf, gathered over the
+ranks when the writer reaches it, so every rank calls
+:func:`save_checkpoint` with the same tree and one of them (``write``)
+writes the file a one-process run would write.  A restore into one
+scatters each rank's rows in place, each rank reading the file itself, so
+a checkpoint of either layout resumes under the other.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import tempfile
@@ -35,6 +45,8 @@ import zipfile
 
 import numpy as np
 import torch
+
+from repro_torch.dist.sharding import WorkerRows
 
 FORMAT = "repro_torch.checkpoint/1"
 
@@ -76,7 +88,7 @@ def _describe(tree, leaves: list):
         return {"kind": "dict", "keys": keys,
                 "items": [_describe(tree[k], leaves) for k in keys]}
     leaves.append(tree)
-    if isinstance(tree, torch.Tensor):
+    if isinstance(tree, (torch.Tensor, WorkerRows)):
         return {"kind": "tensor", "dtype": str(tree.dtype).split(".")[-1],
                 "shape": list(tree.shape)}
     if isinstance(tree, np.ndarray):
@@ -88,7 +100,10 @@ def _describe(tree, leaves: list):
 
 
 def _host_array(leaf) -> np.ndarray:
-    """One leaf as the numpy array written to the ``.npz``."""
+    """One leaf as the numpy array written to the ``.npz`` (a
+    :class:`WorkerRows` is gathered over the ranks first)."""
+    if isinstance(leaf, WorkerRows):
+        leaf = leaf.gather()
     if isinstance(leaf, torch.Tensor):
         x = leaf.detach()
         if x.dtype == torch.bfloat16:
@@ -101,12 +116,11 @@ def _host_array(leaf) -> np.ndarray:
     return np.asarray(leaf, np.float64)
 
 
-def _write_npz(f, leaves: list) -> None:
+def _write_npz(f, arrays) -> None:
     """``np.savez``'s format, one leaf in host memory at a time."""
     with zipfile.ZipFile(f, mode="w", compression=zipfile.ZIP_STORED,
                          allowZip64=True) as zf:
-        for i, leaf in enumerate(leaves):
-            arr = _host_array(leaf)
+        for i, arr in enumerate(arrays):
             with zf.open(f"{i}.npy", "w", force_zip64=True) as out:
                 np.lib.format.write_array(
                     out, np.require(arr, requirements="C"),
@@ -114,18 +128,64 @@ def _write_npz(f, leaves: list) -> None:
             del arr
 
 
-def save_checkpoint(ckpt_dir: str, step: int, tree) -> str:
-    """Write ``tree`` as checkpoint ``step``; returns the ``.npz`` path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+def _host_arrays(tree):
+    """``tree``'s sidecar node, its leaf count and a generator of its
+    leaves' host arrays in the reference's order, one leaf at a time,
+    gathering per-worker leaves over the ranks.  Every rank must consume
+    the generator whole, in the same order: :func:`_drain` takes part in
+    the gathers of the leaves left."""
     leaves: list = []
     node = _describe(tree, leaves)
-    sidecar = json.dumps({"format": FORMAT, "n_leaves": len(leaves),
+    return node, len(leaves), (_host_array(leaf) for leaf in leaves)
+
+
+def _drain(arrays) -> None:
+    for _ in arrays:
+        pass
+
+
+def save_checkpoint(ckpt_dir: str, step: int, tree, *,
+                    write: bool = True) -> str | None:
+    """Write ``tree`` as checkpoint ``step``; returns the ``.npz`` path.
+    With ``write=False`` (the ranks that do not write) it only takes part
+    in gathering the tree's :class:`WorkerRows` leaves, and returns
+    ``None``."""
+    node, n_leaves, arrays = _host_arrays(tree)
+    if not write:
+        _drain(arrays)
+        return None
+    sidecar = json.dumps({"format": FORMAT, "n_leaves": n_leaves,
                           "tree": node}).encode()
     path = _path(ckpt_dir, step)
-    # sidecar FIRST: once the .npz lands, its manifest already exists
-    _atomic_replace(ckpt_dir, path + ".treedef", lambda f: f.write(sidecar))
-    _atomic_replace(ckpt_dir, path, lambda f: _write_npz(f, leaves))
+    try:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        # sidecar FIRST: once the .npz lands, its manifest already exists
+        _atomic_replace(ckpt_dir, path + ".treedef",
+                        lambda f: f.write(sidecar))
+        _atomic_replace(ckpt_dir, path, lambda f: _write_npz(f, arrays))
+    except OSError:
+        # the other ranks wait in the remaining leaves' gathers
+        _drain(arrays)
+        raise
     return path
+
+
+def _digest(arr: np.ndarray) -> str:
+    arr = np.require(arr, requirements="C")
+    return f"{arr.dtype.str} {arr.shape} " + \
+        hashlib.sha256(arr.reshape(-1).view(np.uint8)).hexdigest()
+
+
+def leaf_digests(tree, *, write: bool = True) -> list[str] | None:
+    """``"<dtype> <shape> <SHA-256>"`` of each leaf's array as
+    :func:`save_checkpoint` would write it, in its leaf order (gathered
+    over the ranks as there), without writing anything; ``write=False``
+    only takes part in the gathers and returns ``None``."""
+    _, _, arrays = _host_arrays(tree)
+    if not write:
+        _drain(arrays)
+        return None
+    return [_digest(arr) for arr in arrays]
 
 
 def _read_sidecar(path: str) -> dict:
@@ -166,8 +226,8 @@ def _check_like(node: dict, like, where: str) -> None:
     leaf kinds, shapes and dtypes."""
     kind = node["kind"]
     kinds = {"none": type(None), "tuple": tuple, "list": list, "dict": dict,
-             "tensor": torch.Tensor, "ndarray": np.ndarray, "int": int,
-             "float": float}
+             "tensor": (torch.Tensor, WorkerRows), "ndarray": np.ndarray,
+             "int": int, "float": float}
     if not isinstance(like, kinds[kind]) or isinstance(like, bool):
         raise ValueError(f"{where}: checkpoint holds a {kind}, the state a "
                          f"{type(like).__name__}")
@@ -200,10 +260,13 @@ def _leaf_from(node: dict, arr: np.ndarray, like, device):
             src = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
         else:
             src = torch.from_numpy(arr)
-        if like is not None:
+        if isinstance(like, WorkerRows):
+            like.scatter(src)
+        elif like is not None:
             like.copy_(src)
-            return like
-        return src.to(device) if device is not None else src
+        else:
+            return src.to(device) if device is not None else src
+        return like
     if kind == "ndarray":
         if like is not None:
             np.copyto(like, arr)

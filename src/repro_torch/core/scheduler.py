@@ -15,13 +15,14 @@ elastic    : §5's elastic scheduler run synchronously — per-step partial
              next turn; ``budget_b`` forces a full sync when last step's
              gap exceeds it.
 
-The reference runs inside ``shard_map``, one shard per worker.  Here the
-``p`` workers' gradients arrive in worker order and are consumed one worker
-at a time (compressed into the wire payload, or added into the residual,
-in place), so at most one worker's dense gradient is alive at once; the
-cross-worker collectives are sums in worker order
-(`repro_torch.dist.workers`).  Per-worker state carries a leading worker
-dim (n, *leaf).
+The reference runs inside ``shard_map``, one shard per worker.  Here a
+`repro_torch.dist.workers.WorkerGroup` lays the ``p`` workers over one or
+more processes: each process's workers' gradients arrive in worker order
+and are consumed one worker at a time (compressed into the wire payload,
+or added into the residual, in place), so at most one worker's dense
+gradient is alive at once; the cross-worker collectives are the group's
+gathers and sums in worker order.  Per-worker state carries a leading
+worker dim over the process's own workers, (p / N, *leaf).
 
 A leaf is viewed as (M, R) rows: M = product of the ``model``-sharded dims
 (kept local), R = the rest (compressed).  With a ``model`` axis of size 1
@@ -36,7 +37,7 @@ from typing import Optional
 import torch
 
 from repro_torch import tree as T
-from repro_torch.dist.workers import all_gather, pmean
+from repro_torch.dist.workers import WorkerGroup, WorkerSum, as_group
 from repro_torch.kernels.cr_reduce import ops as CR
 
 
@@ -63,17 +64,20 @@ class SyncConfig:
 STRATEGIES = ("exact", "topk_ef", "onebit_ef", "elastic")
 
 
-def init_sync_state(cfg: SyncConfig, grads_like, n_workers: int) -> dict:
+def init_sync_state(cfg: SyncConfig, grads_like, workers) -> dict:
     """``{"step": 0}``, plus ``err`` (topk_ef, onebit_ef) or ``residual``
-    (elastic): a tree of (n_workers, *leaf) f32 zeros."""
+    (elastic): a tree of (p / N, *leaf) f32 zeros, one row per worker of
+    this process.  ``workers`` is a `WorkerGroup` or a count of in-process
+    workers."""
     if cfg.strategy not in STRATEGIES:
         raise ValueError(cfg.strategy)
+    n_local = as_group(workers).n_local
     state = {"step": 0}
     key = {"topk_ef": "err", "onebit_ef": "err",
            "elastic": "residual"}.get(cfg.strategy)
     if key is not None:
         state[key] = T.tree_map(
-            lambda g: torch.zeros((n_workers, *g.shape), dtype=torch.float32,
+            lambda g: torch.zeros((n_local, *g.shape), dtype=torch.float32,
                                   device=g.device), grads_like)
     return state
 
@@ -190,24 +194,26 @@ def ef_compress_leaf_compact(g, err, spec, method: str,
 # ef_compress_leaf_compact, run per worker)
 # ---------------------------------------------------------------------------
 
-def _leaf_topk_sync(payloads, r: int, perm, tshape):
-    """The p workers' top-k payloads of one leaf -> their mean, in the
-    leaf's shape.  The values cross the wire in bf16, as in the reference;
-    K4 scatter-adds them with unit weights, then the sum is divided by p."""
-    p = len(payloads)
-    vals = all_gather([pl["vals"].to(torch.bfloat16) for pl in payloads])
-    idx = all_gather([pl["idx"] for pl in payloads])
+def _leaf_topk_sync(group, payloads, r: int, perm, tshape):
+    """The p workers' top-k payloads of one leaf (this process's in
+    ``payloads``) -> their mean, in the leaf's shape.  The values cross the
+    wire in bf16, as in the reference; K4 scatter-adds the gathered panel
+    with unit weights, then the sum is divided by p."""
+    p = group.n
+    vals = group.all_gather([pl["vals"].to(torch.bfloat16)
+                             for pl in payloads])
+    idx = group.all_gather([pl["idx"] for pl in payloads])
     ones = torch.ones((p,), dtype=torch.float32, device=vals.device)
     dense = CR.topk_reduce(vals, idx, ones, r)
     return _from_rows(dense.div_(p), perm, tshape)
 
 
-def _leaf_onebit_sync(payloads, perm, tshape):
+def _leaf_onebit_sync(group, payloads, perm, tshape):
     """The p workers' sign/mean payloads of one leaf -> their mean (K5 with
     unit weights, then divided by p)."""
-    p = len(payloads)
-    pos = all_gather([pl["pos"] for pl in payloads])
-    means = all_gather([pl["means"] for pl in payloads])
+    p = group.n
+    pos = group.all_gather([pl["pos"] for pl in payloads])
+    means = group.all_gather([pl["means"] for pl in payloads])
     ones = torch.ones((p,), dtype=torch.float32, device=pos.device)
     dense = CR.onebit_reduce(pos, means, ones)
     return _from_rows(dense.div_(p), perm, tshape)
@@ -273,24 +279,28 @@ def _gap2(means, device) -> torch.Tensor:
     return gap2
 
 
-def _worker_mean(stack: torch.Tensor, wire) -> torch.Tensor:
-    """Mean over the leading worker dim in the wire dtype (a bf16 wire's
-    mean is rounded to bf16, as the reference's bf16 pmean is)."""
-    mean = pmean([x.to(wire) for x in stack])
+def _worker_mean(group, stack: torch.Tensor, wire) -> torch.Tensor:
+    """Mean over the workers (this process's rows: the leading dim) in the
+    wire dtype (a bf16 wire's mean is rounded to bf16, as the reference's
+    bf16 pmean is)."""
+    mean = group.pmean([x.to(wire) for x in stack])
     return mean.to(wire).float() if wire != torch.float32 else mean
 
 
 def sync_gradients(cfg: SyncConfig, worker_grads, state: dict, specs=None,
-                   static_phase: Optional[int] = None):
+                   static_phase: Optional[int] = None,
+                   group: Optional[WorkerGroup] = None):
     """Synchronize the workers' gradients.
 
-    ``worker_grads`` yields one gradient tree per worker, in worker order
-    (a list, or a generator such as ``ElasticTrainStep.worker_grads``'s);
-    each is consumed before the next is asked for.  ``state`` is
-    :func:`init_sync_state`'s, updated in place.  ``specs`` (the param
-    spec tree) is needed by the compressed strategies; ``static_phase``
-    (a Python int) by the static gate.  Returns ``(synced tree,
-    state, {"gap2_over_alpha2": scalar tensor})``.
+    ``worker_grads`` yields one gradient tree per worker of this process,
+    in worker order (a list, or a generator such as
+    ``ElasticTrainStep.worker_grads``'s); each is consumed before the next
+    is asked for.  ``state`` is :func:`init_sync_state`'s, updated in
+    place.  ``specs`` (the param spec tree) is needed by the compressed
+    strategies; ``static_phase`` (a Python int) by the static gate.
+    ``group`` lays the workers over processes (default: every worker in
+    this one, as many as the state has rows, or as yielded for ``exact``).
+    Returns ``(synced tree, state, {"gap2_over_alpha2": scalar tensor})``.
     """
     if cfg.strategy not in STRATEGIES:
         raise ValueError(cfg.strategy)
@@ -299,21 +309,26 @@ def sync_gradients(cfg: SyncConfig, worker_grads, state: dict, specs=None,
     n, td = 0, None
 
     if cfg.strategy == "exact":
-        sums = None
+        # each worker's leaves in the wire dtype, summed in worker order
+        sums, sum_group = None, group or WorkerGroup(1)
         for grads in worker_grads:
             flat_g, td = T.flatten(grads)
             del grads
             if sums is None:
-                sums = [g.to(wire).to(torch.float32, copy=True)
-                        for g in flat_g]
-            else:
-                for s, g in zip(sums, flat_g):
-                    s.add_(g.to(wire))
+                sums = [WorkerSum(sum_group) for _ in flat_g]
+            for i, g in enumerate(flat_g):
+                sums[i].add(g.to(wire))
+                flat_g[i] = None
             del flat_g
             n += 1
         if sums is None:
             raise ValueError("no worker gradients")
-        synced = [s.div_(n) for s in sums]
+        group = group or WorkerGroup(n)
+        _check_workers(n, group.n_local)
+        synced = []
+        for i in range(len(sums)):
+            synced.append(sums[i].mean(group.n))
+            sums[i] = None
         if wire != torch.float32:
             synced = [s.to(wire).float() for s in synced]
         state["step"] = step + 1
@@ -322,7 +337,8 @@ def sync_gradients(cfg: SyncConfig, worker_grads, state: dict, specs=None,
 
     per_worker = T.leaves(state["err" if cfg.strategy != "elastic"
                                 else "residual"])
-    n_workers, device = per_worker[0].shape[0], per_worker[0].device
+    group = group or WorkerGroup(per_worker[0].shape[0])
+    n_local, device = per_worker[0].shape[0], per_worker[0].device
 
     if cfg.strategy in ("topk_ef", "onebit_ef"):
         if specs is None:
@@ -340,17 +356,19 @@ def sync_gradients(cfg: SyncConfig, worker_grads, state: dict, specs=None,
                 flat_g[i] = None
             del flat_g
             n += 1
-        _check_workers(n, n_workers)
+        _check_workers(n, n_local)
         synced = []
         for i, err in enumerate(per_worker):
             _, r, perm, tshape = leaf_rows_geometry(tuple(err.shape[1:]),
                                                     flat_s[i])
             if method == "topk":
-                synced.append(_leaf_topk_sync(payloads[i], r, perm, tshape))
+                synced.append(_leaf_topk_sync(group, payloads[i], r, perm,
+                                              tshape))
             else:
-                synced.append(_leaf_onebit_sync(payloads[i], perm, tshape))
+                synced.append(_leaf_onebit_sync(group, payloads[i], perm,
+                                                tshape))
             payloads[i] = None
-        gap2 = (_gap2((pmean(list(e)) for e in per_worker), device)
+        gap2 = (_gap2((group.pmean(list(e)) for e in per_worker), device)
                 if cfg.track_gap else torch.zeros((), device=device))
         state["step"] = step + 1
         return T.unflatten(td, synced), state, {"gap2_over_alpha2": gap2}
@@ -363,9 +381,9 @@ def sync_gradients(cfg: SyncConfig, worker_grads, state: dict, specs=None,
                          "step is built")
     # the budget needs LAST step's gap: the residual before this step's
     # gradients are added
-    gap_prev = (_gap2((pmean(list(r)) for r in per_worker), device)
+    gap_prev = (_gap2((group.pmean(list(r)) for r in per_worker), device)
                 if norm_gate and cfg.budget_b > 0.0 else None)
-    norms = None
+    norms = WorkerSum(group)
     for grads in worker_grads:
         flat_g, td = T.flatten(grads)
         del grads
@@ -375,13 +393,13 @@ def sync_gradients(cfg: SyncConfig, worker_grads, state: dict, specs=None,
             flat_g[i] = None
         del flat_g
         if norm_gate:
-            local = _bucket_norms(resid, assign, cfg.n_buckets)
-            norms = local if norms is None else norms + local
+            norms.add(_bucket_norms(resid, assign, cfg.n_buckets))
         n += 1
-    _check_workers(n, n_workers)
+    _check_workers(n, n_local)
     if norm_gate:
-        mask = norm_gate_mask(norms, cfg.beta, cfg.budget_b * cfg.budget_b,
-                              gap_prev)
+        # the bucket norms of every worker, summed in worker order
+        mask = norm_gate_mask(norms.total(), cfg.beta,
+                              cfg.budget_b * cfg.budget_b, gap_prev)
         mask = [mask[a].float() for a in range(cfg.n_buckets)]
     else:
         mask = static_gate_mask(static_phase, cfg.n_buckets,
@@ -394,9 +412,9 @@ def sync_gradients(cfg: SyncConfig, worker_grads, state: dict, specs=None,
             synced.append(torch.zeros(r.shape[1:], dtype=torch.float32,
                                       device=device))
             if cfg.track_gap:
-                gap2 = gap2 + torch.sum(torch.square(pmean(list(r))))
+                gap2 = gap2 + torch.sum(torch.square(group.pmean(list(r))))
             continue
-        mean = _worker_mean(r, wire)
+        mean = _worker_mean(group, r, wire)
         if not norm_gate:            # a synced bucket: its backlog is sent
             synced.append(mean)
             r.zero_()
@@ -404,7 +422,7 @@ def sync_gradients(cfg: SyncConfig, worker_grads, state: dict, specs=None,
         keep = 1.0 - m
         if cfg.track_gap:
             # pmean(r * keep) == pmean(r) * keep bit for bit: keep is 0 or 1
-            f32 = mean if wire == torch.float32 else pmean(list(r))
+            f32 = mean if wire == torch.float32 else group.pmean(list(r))
             gap2 = gap2 + torch.sum(torch.square(f32 * keep))
         synced.append(mean.mul_(m))
         r.mul_(keep)

@@ -11,16 +11,23 @@ gradient produced at ``s`` and applied at ``s + tau`` was computed at the
 be sparsified (top-k / one-bit, with or without error feedback); DROPPED
 (crashed) messages deliver nothing.
 
-The ``p`` workers run in this process (`repro_torch.dist.workers`), one
-after another over contiguous batch shards.  A step is two halves:
+The ``p`` workers run one after another over contiguous batch shards, all
+in this process or ``p / N`` a process over ``N`` ranks
+(`repro_torch.dist.workers.WorkerGroup`).  A step is two halves:
 
 * :meth:`AsyncTrainStep.worker_grads` — the gradient half: a generator
-  that yields each worker's ``(loss, grads)`` at the current params;
+  that yields each local worker's ``(loss, grads)`` at the current params;
 * :meth:`AsyncTrainStep.deliver` — the delivery/update half: it consumes
   those gradients one worker at a time (compressing each into its wire
   payload and updating its EF residual in place, so at most one worker's
   dense gradient is alive at once), routes every message, and applies the
   optimizer.  A test can feed it gradients from elsewhere.
+
+Every process holds a replica of the params, the optimizer state, the
+``acc`` rings and the tau table, and its own workers' rows of ``err`` and
+``buf``; the compact payloads are gathered over every worker, and the
+dense means are the group's sums in worker order, so the trajectory does
+not depend on ``N``.
 
 Delivery follows ``AsyncConfig.overlap``:
 
@@ -32,8 +39,9 @@ Delivery follows ``AsyncConfig.overlap``:
   ``t % cap`` (the prior deliveries) before the deposit and again after it
   (the ``tau == 0`` self-deliveries).
 * **densified** (no compressor, or ``overlap=False``): per-worker rings
-  ``buf`` (n, cap, *leaf) of dense payloads, deposit at ``(t + tau) % cap``
-  and take at ``t % cap``, then the mean over workers.
+  ``buf`` (p / N, cap, *leaf) of dense payloads, deposit at
+  ``(t + tau) % cap`` and take at ``t % cap``, then the mean over
+  workers.
 
 Both deliver the same mass per step, so their trajectories agree; with
 ``tau_max = 0`` and no compressor the engine is the exact step bit for bit.
@@ -55,7 +63,7 @@ from repro_torch.core.scheduler import (_from_rows, ef_compress_leaf,
                                         leaf_rows_geometry)
 from repro_torch.dist.train import (guarded_update, tree_all_finite,
                                     worker_grads)
-from repro_torch.dist.workers import all_gather, pmean
+from repro_torch.dist.workers import WorkerSum, as_group
 from repro_torch.kernels.cr_reduce import ops as CR
 
 
@@ -90,18 +98,22 @@ class AsyncConfig:
         return self.overlap and self.compressor != "none"
 
 
-def init_async_state(acfg: AsyncConfig, n_workers: int, params_like,
+def init_async_state(acfg: AsyncConfig, workers, params_like,
                      specs=None) -> dict:
-    """State consumed by :class:`AsyncTrainStep`: ``step`` (int),
-    ``taus`` ((horizon, n) int32 numpy, on the host: the adversary is
+    """State consumed by :class:`AsyncTrainStep` over ``workers`` (a
+    `WorkerGroup`, or a count ``p`` of in-process workers): ``step`` (int),
+    ``taus`` ((horizon, p) int32 numpy, on the host: the adversary is
     oblivious, so routing never waits on the device), ``acc`` (fused: a
     tree of (cap, M, R) f32 rings; needs ``specs`` for the row geometry)
-    or ``buf`` (densified: (n, cap, *leaf) f32), and ``err`` ((n, *leaf)
-    f32 EF residuals) when compressing with error feedback."""
+    or ``buf`` (densified: (p / N, cap, *leaf) f32, this process's
+    workers), and ``err`` ((p / N, *leaf) f32 EF residuals) when
+    compressing with error feedback."""
     if acfg.schedule not in DLV.TAU_SCHEDULES:
         raise ValueError(f"unknown schedule {acfg.schedule!r}")
+    group = as_group(workers)
+    n_local = group.n_local
     state = {"step": 0,
-             "taus": DLV.make_tau_schedule(acfg.schedule, n_workers,
+             "taus": DLV.make_tau_schedule(acfg.schedule, group.n,
                                            acfg.horizon, acfg.tau_max,
                                            acfg.seed)}
     cap = acfg.capacity
@@ -116,12 +128,12 @@ def init_async_state(acfg: AsyncConfig, n_workers: int, params_like,
                 dtype=torch.float32, device=a.device), params_like, specs)
     else:
         state["buf"] = T.tree_map(
-            lambda a: torch.zeros((n_workers, cap, *a.shape),
+            lambda a: torch.zeros((n_local, cap, *a.shape),
                                   dtype=torch.float32, device=a.device),
             params_like)
     if acfg.has_err:
         state["err"] = T.tree_map(
-            lambda a: torch.zeros((n_workers, *a.shape), dtype=torch.float32,
+            lambda a: torch.zeros((n_local, *a.shape), dtype=torch.float32,
                                   device=a.device), params_like)
     return state
 
@@ -140,20 +152,24 @@ def crash_subst_scale(taus: np.ndarray, step: int, cap: int) -> np.float32:
 
 class AsyncTrainStep:
     """Bounded-staleness step ``(params, opt_state, state, batch) ->
-    (params, opt_state, state, metrics)``.  Metrics: ``loss`` (mean over
-    workers), ``stale_gap2`` (||applied - fresh mean gradient||^2; 0 when
-    ``track_gap`` is off), ``mean_tau`` and ``nonfinite``."""
+    (params, opt_state, state, metrics)`` over ``workers`` (a
+    `WorkerGroup`, or a count of in-process workers).  Metrics: ``loss``
+    (mean over workers), ``stale_gap2`` (||applied - fresh mean
+    gradient||^2; 0 when ``track_gap`` is off), ``mean_tau`` and
+    ``nonfinite``, the same on every process."""
 
-    def __init__(self, cfg: ArchConfig, opt, acfg: AsyncConfig,
-                 n_workers: int, specs, grad_accum: int = 1):
+    def __init__(self, cfg: ArchConfig, opt, acfg: AsyncConfig, workers,
+                 specs, grad_accum: int = 1):
         self.cfg, self.opt, self.acfg = cfg, opt, acfg
-        self.n, self.specs, self.grad_accum = n_workers, specs, grad_accum
+        self.group = as_group(workers)
+        self.n, self.specs, self.grad_accum = self.group.n, specs, grad_accum
         self._geoms = None
 
     def worker_grads(self, params, batch: dict):
-        """Gradient half: yield ``(loss, grads)`` per worker, in order,
-        each the mean over ``grad_accum`` microbatches of its shard."""
-        yield from worker_grads(self.cfg, params, batch, self.n,
+        """Gradient half: yield ``(loss, grads)`` per local worker, in
+        order, each the mean over ``grad_accum`` microbatches of its
+        shard."""
+        yield from worker_grads(self.cfg, params, batch, self.group,
                                 self.grad_accum)
 
     def __call__(self, params, opt_state, state: dict, batch: dict):
@@ -162,9 +178,10 @@ class AsyncTrainStep:
 
     # ------------------------------------------------------------------
     def deliver(self, params, opt_state, state: dict, worker_grads):
-        """Delivery/update half over an iterable of per-worker
-        ``(loss, grads)``."""
-        acfg, n, cap = self.acfg, self.n, self.acfg.capacity
+        """Delivery/update half over an iterable of ``(loss, grads)``, one
+        per local worker."""
+        acfg, n, cap, group = self.acfg, self.n, self.acfg.capacity, \
+            self.group
         step, tab = state["step"], state["taus"]
         tau = tab[step % tab.shape[0]]
         alive = (tau >= 0).astype(np.float32)
@@ -177,11 +194,20 @@ class AsyncTrainStep:
             self._geoms = [leaf_rows_geometry(tuple(p.shape), sp)
                            for p, sp in zip(flat_p, flat_s)]
 
-        losses, bad, fresh = [], [], None
+        # per leaf: the local workers' compact payloads (fused), and the
+        # sums over every worker of the dense deliveries (densified) and
+        # of the fresh gradients (track_gap)
+        losses, bad = [], []
         payloads = [[] for _ in flat_p]
-        stale = [None] * len(flat_p)
+        mine = None if acfg.fused else [WorkerSum(group) for _ in flat_p]
+        fresh = ([WorkerSum(group) for _ in flat_p] if acfg.track_gap
+                 else None)
         bufs = None if acfg.fused else T.leaves(state["buf"])
         for w, (loss, grads) in enumerate(worker_grads):
+            if w >= group.n_local:
+                raise ValueError(f"got gradients of more than "
+                                 f"{group.n_local} workers")
+            gw = group.local[w]
             flat_g = T.leaves(grads)
             del grads
             losses.append(loss)
@@ -194,57 +220,61 @@ class AsyncTrainStep:
                         g.zero_()
                 bad.append(torch.tensor(0.0 if finite else 1.0,
                                         device=device))
-            if acfg.track_gap:
-                fresh = ([g.float() for g in flat_g] if fresh is None else
-                         [f + g for f, g in zip(fresh, flat_g)])
             for i, g in enumerate(flat_g):
+                if acfg.track_gap:
+                    fresh[i].add(g.float())
                 err = errs[i][w] if acfg.has_err else None
                 if acfg.fused:
                     payload, _ = ef_compress_leaf_compact(
                         g, err, flat_s[i], acfg.compressor, acfg.topk_ratio)
                     payloads[i].append(payload)
                 else:
-                    stale[i] = self._densified_leaf(
+                    mine[i].add(self._densified_leaf(
                         bufs[i][w], g, err, flat_s[i], step,
-                        int(d_eff[w]), float(alive[w]), stale[i])
+                        int(d_eff[gw]), float(alive[gw])))
                 flat_g[i] = None
             del flat_g
-        if len(losses) != n:
+        if len(losses) != group.n_local:
             raise ValueError(f"got gradients of {len(losses)} workers, "
-                             f"expected {n}")
+                             f"expected {group.n_local}")
 
         if acfg.fused:
             synced = self._fused_delivery(state, payloads, step, tab)
         else:
-            synced = [s / n for s in stale]
+            synced = []
+            for i in range(len(mine)):
+                synced.append(mine[i].mean())
+                mine[i] = None
             if acfg.crash_subst:
                 s = float(crash_subst_scale(tab, step, cap))
                 synced = [x * s for x in synced]
-        del payloads, stale
+        del payloads, mine
 
         gap2 = torch.zeros((), device=device)
         if acfg.track_gap:
             for i in range(len(synced)):
-                gap2 = gap2 + torch.sum(torch.square(synced[i]
-                                                     - fresh[i] / n))
+                total = fresh[i].total()
                 fresh[i] = None
+                gap2 = gap2 + torch.sum(torch.square(synced[i] - total / n))
+                del total
         _, opt_state, _ = guarded_update(self.opt, synced, opt_state, flat_p,
                                          skip_nonfinite=acfg.skip_nonfinite)
         state["step"] = step + 1
         metrics = {
-            "loss": pmean(losses),
+            "loss": group.pmean(losses),
             "stale_gap2": gap2,
             "mean_tau": float(d_eff.astype(np.float32).sum(dtype=np.float32)
                               / np.float32(n)),
-            "nonfinite": (pmean(bad) if bad
+            "nonfinite": (group.pmean(bad) if bad
                           else torch.zeros((), device=device)),
         }
         return params, opt_state, state, metrics
 
     # ------------------------------------------------------------------
-    def _densified_leaf(self, ring, g, err, spec, step, d, alive, stale):
+    def _densified_leaf(self, ring, g, err, spec, step, d, alive):
         """One worker's dense delivery for one leaf: take the prior slot,
-        deposit the fresh payload ``d`` steps ahead, take the own slot."""
+        deposit the fresh payload ``d`` steps ahead, take the own slot;
+        returns what reaches the model from this worker now."""
         acfg, cap = self.acfg, self.acfg.capacity
         prior, _ = DLV.ring_take(ring, step % cap)
         if acfg.compressor != "none":
@@ -257,12 +287,11 @@ class AsyncTrainStep:
             payload = g.float()
         DLV.ring_deposit(ring, (step + d) % cap, payload * alive)
         own, _ = DLV.ring_take(ring, step % cap)
-        mine = prior + own
-        return mine if stale is None else stale + mine
+        return prior + own
 
     def _fused_delivery(self, state, payloads, step, tab):
-        """Deposit every gathered message into its slot and take slot
-        ``t % cap``; returns the applied mean per leaf."""
+        """Gather every worker's message, deposit each into its slot and
+        take slot ``t % cap``; returns the applied mean per leaf."""
         acfg, n, cap = self.acfg, self.n, self.acfg.capacity
         accs = T.leaves(state["acc"])
         device = accs[0].device
@@ -277,7 +306,8 @@ class AsyncTrainStep:
         for i, acc in enumerate(accs):
             prior = acc[now].clone()
             acc[now].zero_()
-            gathered = {key: all_gather([p[key] for p in payloads[i]])
+            gathered = {key: self.group.all_gather([p[key]
+                                                    for p in payloads[i]])
                         for key in payloads[i][0]}
             payloads[i] = None
             if acfg.compressor == "topk":
@@ -295,8 +325,9 @@ class AsyncTrainStep:
         return synced
 
 
-def make_async_train_step(cfg: ArchConfig, opt, acfg: AsyncConfig,
-                          n_workers: int, specs, grad_accum: int = 1):
-    """The bounded-staleness step over ``n_workers`` in-process workers,
-    each over ``grad_accum`` microbatches of its shard."""
-    return AsyncTrainStep(cfg, opt, acfg, n_workers, specs, grad_accum)
+def make_async_train_step(cfg: ArchConfig, opt, acfg: AsyncConfig, workers,
+                          specs, grad_accum: int = 1):
+    """The bounded-staleness step over ``workers`` (a `WorkerGroup`, or a
+    count of in-process workers), each over ``grad_accum`` microbatches of
+    its shard."""
+    return AsyncTrainStep(cfg, opt, acfg, workers, specs, grad_accum)

@@ -6,10 +6,11 @@ Two training paths share one loss:
 * :func:`make_train_step` — the exact step on the whole batch, the
   perfectly-consistent baseline;
 * :func:`make_elastic_train_step` — the relaxed-consistency path: ``p``
-  in-process workers each take the gradient of their batch shard, and
-  `repro_torch.core.scheduler.sync_gradients` decides what is applied
-  (the exact mean, top-k / one-bit with error feedback, or the elastic
-  norm- / static-gated partial sync).
+  workers (in this process, or laid over processes by a
+  `repro_torch.dist.workers.WorkerGroup`) each take the gradient of their
+  batch shard, and `repro_torch.core.scheduler.sync_gradients` decides
+  what is applied (the exact mean, top-k / one-bit with error feedback,
+  or the elastic norm- / static-gated partial sync).
 
 Parameters are a nested dict of float32 tensors in the reference's layout;
 gradients come back as a tree of the same structure.  Optimizer state and
@@ -25,7 +26,7 @@ from repro_torch import tree as T
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.scheduler import (SyncConfig, init_sync_state,
                                         sync_gradients)
-from repro_torch.dist.workers import pmean, shard_batch
+from repro_torch.dist.workers import as_group, shard_batch
 from repro_torch.models import transformer as TF
 from repro_torch.optim import apply_updates, global_norm
 from repro_torch.serve.sampling import SampleConfig, sample_tokens
@@ -96,14 +97,15 @@ def mean_grads(cfg: ArchConfig, params, batch: dict, grad_accum: int = 1):
     return loss * inv, {k: v * inv for k, v in parts.items()}, grads
 
 
-def worker_grads(cfg: ArchConfig, params, batch: dict, n: int,
+def worker_grads(cfg: ArchConfig, params, batch: dict, workers,
                  grad_accum: int = 1):
-    """Yield ``(loss, grads)`` of each of ``n`` workers' contiguous batch
-    shards at ``params``, in worker order, each over ``grad_accum``
-    microbatches.  The generator keeps no reference to what it yielded, so
-    a consumer that drops a worker's gradients frees them before the next
+    """Yield ``(loss, grads)`` of each local worker's contiguous batch
+    shard at ``params``, in worker order, each over ``grad_accum``
+    microbatches (``workers``: a `WorkerGroup`, or a count of in-process
+    workers).  The generator keeps no reference to what it yielded, so a
+    consumer that drops a worker's gradients frees them before the next
     worker's backward."""
-    for shard in shard_batch(batch, n):
+    for shard in as_group(workers).shard_batch(batch):
         yield mean_grads(cfg, params, shard, grad_accum)[::2]
 
 
@@ -157,13 +159,13 @@ def make_train_step(cfg: ArchConfig, opt, grad_accum: int = 1, *,
     return step
 
 
-def init_dist_sync_state(scfg: SyncConfig, n_workers: int,
-                         params_like) -> dict:
+def init_dist_sync_state(scfg: SyncConfig, workers, params_like) -> dict:
     """State of :func:`make_elastic_train_step`: ``step`` and, for the
-    compressed and elastic strategies, one f32 accumulator per worker (EF
-    residual or deferred residual) with a leading worker dim, on the
-    params' device."""
-    return init_sync_state(scfg, params_like, n_workers)
+    compressed and elastic strategies, one f32 accumulator per local
+    worker (EF residual or deferred residual) with a leading worker dim,
+    on the params' device (``workers``: a `WorkerGroup`, or a count of
+    in-process workers)."""
+    return init_sync_state(scfg, params_like, workers)
 
 
 class _CollectLosses:
@@ -185,30 +187,33 @@ class _CollectLosses:
 
 class ElasticTrainStep:
     """Synchronous sync-strategy step ``(params, opt_state, sync_state,
-    batch) -> (params, opt_state, sync_state, metrics)`` over ``n_workers``
-    in-process workers.  Metrics: ``loss`` (mean over workers) and
-    ``gap2_over_alpha2``.
+    batch) -> (params, opt_state, sync_state, metrics)`` over ``workers``
+    (a `WorkerGroup`, or a count of in-process workers).  Metrics: ``loss``
+    (mean over every worker, on every process) and ``gap2_over_alpha2``.
 
     A step is two halves, as in `repro_torch.dist.async_engine`:
     :meth:`worker_grads` yields each worker's ``(loss, grads)`` and
     :meth:`sync_update` consumes them one worker at a time, syncs them and
     applies the optimizer, so that a test can feed it gradients from
-    elsewhere.  Params, optimizer state and sync state are updated in
+    elsewhere (one pair per local worker).  Params, optimizer state and
+    sync state are updated in
     place.  ``static_phase`` is the elastic static gate's phase, fixed when
     the step is built (as the reference compiles one program a phase);
     each worker's gradient is the mean over ``grad_accum`` microbatches of
     its shard."""
 
-    def __init__(self, cfg: ArchConfig, opt, scfg: SyncConfig,
-                 n_workers: int, specs, static_phase: int = 0,
-                 grad_accum: int = 1):
+    def __init__(self, cfg: ArchConfig, opt, scfg: SyncConfig, workers,
+                 specs, static_phase: int = 0, grad_accum: int = 1):
         self.cfg, self.opt, self.scfg = cfg, opt, scfg
-        self.n, self.specs, self.static_phase = n_workers, specs, static_phase
+        self.group = as_group(workers)
+        self.n, self.specs, self.static_phase = (self.group.n, specs,
+                                                 static_phase)
         self.grad_accum = grad_accum
 
     def worker_grads(self, params, batch: dict):
-        """Gradient half: yield ``(loss, grads)`` per worker, in order."""
-        yield from worker_grads(self.cfg, params, batch, self.n,
+        """Gradient half: yield ``(loss, grads)`` per local worker, in
+        order."""
+        yield from worker_grads(self.cfg, params, batch, self.group,
                                 self.grad_accum)
 
     def __call__(self, params, opt_state, state: dict, batch: dict):
@@ -221,24 +226,25 @@ class ElasticTrainStep:
         pairs = _CollectLosses(worker_grads)
         synced, state, smetrics = sync_gradients(
             self.scfg, pairs, state, specs=self.specs,
-            static_phase=self.static_phase)
-        if len(pairs.losses) != self.n:
+            static_phase=self.static_phase, group=self.group)
+        if len(pairs.losses) != self.group.n_local:
             raise ValueError(f"got gradients of {len(pairs.losses)} "
-                             f"workers, expected {self.n}")
+                             f"workers, expected {self.group.n_local}")
         _, opt_state, _ = guarded_update(self.opt, T.leaves(synced),
                                          opt_state, T.leaves(params),
                                          skip_nonfinite=False)
-        metrics = {"loss": pmean(pairs.losses),
+        metrics = {"loss": self.group.pmean(pairs.losses),
                    "gap2_over_alpha2": smetrics["gap2_over_alpha2"]}
         return params, opt_state, state, metrics
 
 
-def make_elastic_train_step(cfg: ArchConfig, opt, scfg: SyncConfig,
-                            n_workers: int, specs, static_phase: int = 0,
+def make_elastic_train_step(cfg: ArchConfig, opt, scfg: SyncConfig, workers,
+                            specs, static_phase: int = 0,
                             grad_accum: int = 1):
-    """The relaxed-sync step over ``n_workers`` in-process workers, each
-    over ``grad_accum`` microbatches of its shard."""
-    return ElasticTrainStep(cfg, opt, scfg, n_workers, specs, static_phase,
+    """The relaxed-sync step over ``workers`` (a `WorkerGroup`, or a count
+    of in-process workers), each over ``grad_accum`` microbatches of its
+    shard."""
+    return ElasticTrainStep(cfg, opt, scfg, workers, specs, static_phase,
                             grad_accum)
 
 

@@ -55,7 +55,10 @@ class TrainFaultInjector:
     def maybe_kill(self, step: int) -> None:
         """SIGKILL after step ``step`` if a kill event for this attempt is
         scheduled.  SIGKILL (not an exception) on purpose: no atexit, no
-        flushing — the hardest crash the supervisor must survive."""
+        flushing — the hardest crash the supervisor must survive.  Under
+        ``--ranks`` the launcher calls it on rank 0 only; ``grad_poison``
+        reaches every rank through the ``loss_scale`` rows its workers
+        hold."""
         for ev in self.plan.at(step, "kill"):
             if ev.on_attempt == self.attempt:
                 print(f"fault: SIGKILL at step {step} "

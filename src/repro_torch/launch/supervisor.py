@@ -18,6 +18,13 @@ alive through real faults:
     re-fire forever: every resume replays the steps since the last
     checkpoint, including the kill step).
 
+A child run with ``--ranks N`` is one world: a ``kill`` event fires on
+rank 0, the launcher then kills the other ranks and exits non-zero (a
+rank also ends itself when its launcher is gone, so the watchdog's kill
+takes the world down too), and the restart starts the whole world again,
+which resumes from the checkpoint rank 0 wrote with every rank's rows
+gathered.
+
 Usage (everything after ``--`` goes to `repro_torch.launch.train`; the
 supervisor adds nothing of its own, so on a machine without a card the
 child's arguments say ``--device cpu``):

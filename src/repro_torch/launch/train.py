@@ -23,11 +23,30 @@ the bounded-staleness engine, where ``--crash-subst`` renormalizes the
 mass of crashed or delayed workers.  A step's line is printed every
 ``--log-every`` steps; ``main`` returns every step's metrics.
 
-``--workers N`` runs N data-parallel workers in this process (each takes a
-contiguous batch shard).  ``--device`` defaults to ``cuda``; without a card
-the trainer raises unless ``--device cpu`` is given — it never carries on on
-the CPU by itself.  ``--n-layers N`` cuts the arch to its first N layers at
-full width (0: its own depth; more than its depth is refused).
+``--workers N`` runs N data-parallel workers (each takes a contiguous
+batch shard).  ``--ranks R`` lays them over R processes, one
+``torch.distributed`` rank each with N / R contiguous workers
+(`repro_torch.launch.mesh`; R must divide N): the counterpart of the
+reference's ``--devices N`` is ``--workers N --ranks N``.  The ranks are
+started with the ``spawn`` method after the CUDA kernels are built once;
+they meet through a ``FileStore`` in a fresh temporary directory (no TCP
+port) and gather the compressed payloads and every dense mean in worker
+order, so a run's losses and state do not depend on R.  Rank 0 prints the
+step lines, writes the checkpoints and hands its metrics back; if a rank
+dies, the others are killed and the run raises.  ``--dist-backend``
+defaults to ``nccl`` on ``--device cuda`` (one card a rank: with fewer
+cards than ranks it raises; name ``gloo`` to share a card) and ``gloo`` on
+the CPU.  ``--sync exact`` is the whole-batch step of one process and
+refuses ``--ranks`` > 1 (its data-parallel form is ``--sync async
+--tau-max 0``).
+
+    python -m repro_torch.launch.train --device cpu --arch qwen3-1.7b-smoke \\
+        --sync async --compressor topk --workers 2 --ranks 2 --steps 3
+
+``--device`` defaults to ``cuda``; without a card the trainer raises
+unless ``--device cpu`` is given — it never carries on on the CPU by
+itself.  ``--n-layers N`` cuts the arch to its first N layers at full
+width (0: its own depth; more than its depth is refused).
 
 Checkpoints and faults, as the reference's:
 
@@ -48,12 +67,19 @@ save is best effort: an ``OSError`` is printed and training goes on.
 with ``--fault-attempt`` (the supervisor's restart count): ``grad_poison``
 steps scale the loss by NaN/Inf and arm the skip-step guard (``--sync
 exact`` or ``async`` only), tau events rewrite the tau table, ``ckpt_io``
-fails a save and ``kill`` SIGKILLs the process after its step.
+fails a save and ``kill`` SIGKILLs the process after its step (under
+``--ranks``, rank 0, and the world goes down with it; the supervisor
+restarts the whole world, which resumes from the gathered checkpoint).
 """
 from __future__ import annotations
 
 import argparse
 import os
+import queue
+import shutil
+import sys
+import tempfile
+import threading
 import time
 
 
@@ -86,7 +112,13 @@ def _parse(argv=None):
                     help="fused compact-wire delivery (deposit kernels); "
                          "--no-overlap keeps the densified delivery")
     ap.add_argument("--workers", type=int, default=1,
-                    help="in-process data-parallel workers")
+                    help="data-parallel workers")
+    ap.add_argument("--ranks", type=int, default=1,
+                    help="processes the workers are laid over, one "
+                         "torch.distributed rank each (divides --workers)")
+    ap.add_argument("--dist-backend", default=None, choices=["gloo", "nccl"],
+                    help="the ranks' backend (default: nccl on --device "
+                         "cuda, gloo on the CPU)")
     ap.add_argument("--n-layers", type=int, default=0,
                     help="cut the arch to its first N layers (0: all)")
     # fault injection (repro_torch.faults): a plan path or inline JSON; the
@@ -121,37 +153,163 @@ _STATE_MISMATCH = (
     "original flags or use a fresh --ckpt-dir")
 
 
-def main(argv=None, *, cfg=None) -> list[dict]:
+def main(argv=None, *, cfg=None, report=None) -> list[dict]:
     """Run the configured training; returns one metrics dict per step run
-    by this process (``step``, ``loss``, ``gap2_over_alpha2``,
-    ``stale_gap2``, ``mean_tau``, ``nonfinite``, ``step_s``; a metric the
-    strategy does not have is 0).  ``cfg`` (an ``ArchConfig``) overrides
-    ``--arch``, e.g. a config cut in depth.  Every arch trains on the
-    synthetic token stream; a frontend arch (vision, audio) then embeds its
-    tokens, as the reference's launcher does."""
+    (``step``, ``loss``, ``gap2_over_alpha2``, ``stale_gap2``,
+    ``mean_tau``, ``nonfinite``, ``step_s``, ``wire_bytes``; a metric the
+    strategy does not have is 0; under ``--ranks``, rank 0's).  ``cfg``
+    (an ``ArchConfig``) overrides ``--arch``, e.g. a config cut in depth.
+    Every arch trains on the synthetic token stream; a frontend arch
+    (vision, audio) then embeds its tokens, as the reference's launcher
+    does.  A ``report`` dict receives ``"ranks"``, one dict a rank (its
+    kernel launches, peak device memory, step seconds and per-step wire
+    bytes by collective, and the seconds its share of the digests took)
+    and ``"digests"``, the SHA-256 of each leaf of the final ``(params,
+    opt_state, state)`` as a one-process checkpoint of it would hold it
+    (`repro_torch.checkpoint.leaf_digests`)."""
     args = _parse(argv)
+    if args.ranks > 1:
+        return _run_ranks(args, cfg, report)
+    from repro_torch.launch.mesh import RankLayout
+    rep = None if report is None else {}
+    history = _train(args, cfg, RankLayout(), rep)
+    if report is not None:
+        report["digests"] = rep.pop("digests")
+        report["ranks"] = [rep]
+    return history
+
+
+def _run_ranks(args, cfg, report):
+    """The parent of a ``--ranks`` run: check the layout, build the CUDA
+    kernels once, spawn one process a rank, collect rank 0's history and
+    every rank's report, and take the world down if a rank dies."""
+    import multiprocessing
+
+    import torch
+
+    from repro_torch.launch.mesh import check_layout, default_backend
+
+    device_type = torch.device(args.device).type
+    backend = args.dist_backend or default_backend(device_type)
+    resolve_device(args.device)
+    check_layout(args.workers, args.ranks, backend, device_type)
+    if args.sync == "exact":
+        raise SystemExit("--sync exact is the whole-batch step of one "
+                         "process; over ranks use --sync async --tau-max 0")
+    if device_type == "cuda":
+        # before any rank starts, so that two ranks never race nvcc
+        from repro_torch.kernels import _build
+        _build.build_all()
+    ctx = multiprocessing.get_context("spawn")
+    tmp = tempfile.mkdtemp(prefix="repro_torch_ranks_")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_rank_main, name=f"rank {r}", daemon=True,
+                         args=(r, args, backend, os.path.join(tmp, "store"),
+                               cfg, report is not None, results,
+                               os.getpid()))
+             for r in range(args.ranks)]
+    got = {}
+    try:
+        for proc in procs:
+            proc.start()
+        while len(got) < len(procs):
+            try:
+                rank, out = results.get(timeout=1.0)
+                got[rank] = out
+                continue
+            except queue.Empty:
+                pass
+            dead = [f"{p.name} exited with code {p.exitcode}" for p in procs
+                    if p.exitcode not in (None, 0)]
+            if not dead and all(p.exitcode == 0 for p in procs):
+                try:
+                    rank, out = results.get(timeout=10.0)
+                    got[rank] = out
+                    continue
+                except queue.Empty:
+                    dead = ["every rank exited without a result"]
+            if dead:
+                raise RuntimeError(f"{'; '.join(dead)}: the other ranks "
+                                   "were killed")
+        for proc in procs:
+            proc.join()
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+            if proc.pid is not None:
+                proc.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if report is not None:
+        ranks = [got[r]["report"] for r in range(args.ranks)]
+        report["digests"] = ranks[0].pop("digests")
+        report["ranks"] = ranks
+    return got[0]["history"]
+
+
+def _exit_with_parent(parent_pid: int) -> None:
+    """End this rank if the process that spawned it is gone."""
+    def watch():
+        while os.getppid() == parent_pid:
+            time.sleep(1.0)
+        os._exit(1)
+    threading.Thread(target=watch, daemon=True).start()
+
+
+def _rank_main(rank, args, backend, store_path, cfg, want_report, results,
+               parent_pid):
+    """One rank of a ``--ranks`` run (a spawned process)."""
+    from repro_torch.launch.mesh import close, make_host_mesh
+
+    _exit_with_parent(parent_pid)
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    layout = make_host_mesh(backend=backend, world=args.ranks, rank=rank,
+                            store_path=store_path)
+    try:
+        rep = {} if want_report else None
+        history = _train(args, cfg, layout, rep)
+        results.put((rank, {"history": history if rank == 0 else None,
+                            "report": rep}))
+    finally:
+        close(layout)
+
+
+def _train(args, cfg, layout, report) -> list[dict]:
+    """The training loop of one process: all the workers (one rank), or
+    rank ``layout.rank``'s."""
     import dataclasses
 
     import numpy as np
     import torch
 
     from repro_torch import tree as T
-    from repro_torch.checkpoint import (latest_step, load_checkpoint,
-                                        save_checkpoint)
+    from repro_torch.checkpoint import (latest_step, leaf_digests,
+                                        load_checkpoint, save_checkpoint)
     from repro_torch.configs import get_config
     from repro_torch.core.scheduler import SyncConfig
     from repro_torch.data.pipeline import SyntheticLMDataset, to_device
+    from repro_torch.dist import sharding as SH
     from repro_torch.dist.async_engine import (AsyncConfig,
                                                init_async_state,
                                                make_async_train_step)
     from repro_torch.dist.train import (init_dist_sync_state,
                                         make_elastic_train_step,
                                         make_train_step)
+    from repro_torch.dist.workers import WorkerGroup
+    from repro_torch.launch.mesh import rank_device
     from repro_torch.models import transformer as TF
     from repro_torch.models.params import init_params, param_specs
     from repro_torch.optim import constant, momentum
 
-    device = resolve_device(args.device)
+    if layout.world == 1:
+        device = resolve_device(args.device)
+    else:
+        device = rank_device(layout, torch.device(args.device).type)
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+    group = WorkerGroup(args.workers, layout)
+    writer = layout.rank == 0
     if device.type == "cuda":
         # full-precision f32 products, f32 accumulation of bf16 products
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -196,8 +354,8 @@ def main(argv=None, *, cfg=None) -> list[dict]:
         scfg = SyncConfig(strategy=args.sync, topk_ratio=args.topk_ratio,
                           beta=args.beta, budget_b=args.budget_b,
                           gate="norm")
-        state = init_dist_sync_state(scfg, args.workers, params)
-        run = make_elastic_train_step(cfg, opt, scfg, args.workers, specs)
+        state = init_dist_sync_state(scfg, group, params)
+        run = make_elastic_train_step(cfg, opt, scfg, group, specs)
     else:
         # the horizon is decoupled from --steps (up to 1024), so a resume
         # with a larger --steps reuses the checkpointed tau table; the
@@ -212,13 +370,13 @@ def main(argv=None, *, cfg=None) -> list[dict]:
             topk_ratio=args.topk_ratio, horizon=horizon, seed=args.seed,
             crash_subst=args.crash_subst, skip_nonfinite=guard,
             overlap=args.overlap)
-        state = init_async_state(acfg, args.workers, params, specs)
+        state = init_async_state(acfg, group, params, specs)
         if injector is not None and injector.plan.has_tau_events:
             # crash/rejoin/delay/drop faults rewrite the host tau table; a
             # resume restores the same rewritten table from the checkpoint
             state["taus"] = injector.plan.apply_to_taus(state["taus"],
                                                         args.tau_max)
-        run = make_async_train_step(cfg, opt, acfg, args.workers, specs)
+        run = make_async_train_step(cfg, opt, acfg, group, specs)
 
     step_idx = 0
     if args.ckpt_dir:
@@ -226,10 +384,13 @@ def main(argv=None, *, cfg=None) -> list[dict]:
         if last is not None:
             t0 = time.perf_counter()
             try:
-                params, opt_state, state = load_checkpoint(
-                    args.ckpt_dir, last, like=(params, opt_state, state))
+                # every rank reads the file and takes its workers' rows
+                params, opt_state, whole = load_checkpoint(
+                    args.ckpt_dir, last,
+                    like=(params, opt_state, SH.gather_state(state, group)))
             except ValueError as e:
                 raise ValueError(f"{_STATE_MISMATCH} ({e})") from e
+            state = SH.scatter_state(whole, state)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             load_s = time.perf_counter() - t0
@@ -237,7 +398,13 @@ def main(argv=None, *, cfg=None) -> list[dict]:
             print(f"resumed from step {last}", flush=True)
             print(f"ckpt: loaded step {last} in {load_s:.3f} s", flush=True)
 
-    history = []
+    if report is not None:
+        from repro_torch.kernels import all_kernels
+        kernels = all_kernels()
+        launched = {k.name: k.launches for k in kernels}
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+    history, wire = [], []
     for t in range(step_idx, args.steps):
         batch = to_device(data.batch(t), device)
         if guard:
@@ -247,6 +414,7 @@ def main(argv=None, *, cfg=None) -> list[dict]:
             batch["loss_scale"] = torch.full(
                 (args.batch,), injector.loss_scale(t), dtype=torch.float32,
                 device=device)
+        group.reset_wire()
         t0 = time.perf_counter()
         params, opt_state, state, metrics = run(params, opt_state, state,
                                                 batch)
@@ -258,8 +426,10 @@ def main(argv=None, *, cfg=None) -> list[dict]:
                                                      0.0)),
                "stale_gap2": float(metrics.get("stale_gap2", 0.0)),
                "mean_tau": float(metrics.get("mean_tau", 0.0)),
-               "nonfinite": float(metrics.get("nonfinite", 0.0))}
+               "nonfinite": float(metrics.get("nonfinite", 0.0)),
+               "wire_bytes": group.wire_bytes()}
         history.append(row)
+        wire.append({k: v["bytes"] for k, v in group.wire.items()})
         if t % args.log_every == 0:
             # gap2/a2 as the reference prints it: the elastic gap, or the
             # bounded-staleness engine's stale gap
@@ -275,16 +445,20 @@ def main(argv=None, *, cfg=None) -> list[dict]:
             try:
                 if injector is not None:
                     injector.check_ckpt_io(t + 1)
-                path = save_checkpoint(args.ckpt_dir, t + 1,
-                                       (params, opt_state, state))
-                print(f"ckpt: saved step {t + 1} in "
-                      f"{time.perf_counter() - t0:.3f} s "
-                      f"({os.path.getsize(path)} bytes)", flush=True)
+                # per-worker leaves gathered into the one-process layout
+                path = save_checkpoint(
+                    args.ckpt_dir, t + 1,
+                    (params, opt_state, SH.gather_state(state, group)),
+                    write=writer)
+                if path is not None:
+                    print(f"ckpt: saved step {t + 1} in "
+                          f"{time.perf_counter() - t0:.3f} s "
+                          f"({os.path.getsize(path)} bytes)", flush=True)
             except OSError as e:
                 # best effort: keep training; the next save (or the torn
                 # checkpoint skip in latest_step) covers recovery
                 print(f"ckpt save failed at step {t + 1}: {e}", flush=True)
-        if injector is not None:
+        if injector is not None and writer:
             injector.maybe_kill(t)
     losses = [r["loss"] for r in history]
     if injector is not None:
@@ -296,6 +470,18 @@ def main(argv=None, *, cfg=None) -> list[dict]:
         losses = finite if finite else losses
     if history:
         print(f"final loss {np.mean(losses[-10:]):.4f}", flush=True)
+    if report is not None:
+        t0 = time.perf_counter()
+        digests = leaf_digests(
+            (params, opt_state, SH.gather_state(state, group)), write=writer)
+        report.update(
+            rank=layout.rank, device=str(device),
+            launches={k.name: k.launches - launched[k.name]
+                      for k in kernels},
+            max_memory_allocated=(torch.cuda.max_memory_allocated(device)
+                                  if device.type == "cuda" else None),
+            step_s=[r["step_s"] for r in history], wire=wire,
+            digests=digests, digest_s=time.perf_counter() - t0)
     return history
 
 
