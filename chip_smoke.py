@@ -215,14 +215,39 @@ Phases (any failure exits non-zero):
     equals the one rank 0 hands back with every rank's rows gathered; each
     rank's peak memory, step wall and collective bytes a step logged, the
     summed peak under 0.90 of the card; ``--ranks 2`` with ``nccl`` (named
-    or by default) on the one card raises before any step.
+    or by default) on the one card raises before any step;
+37. tensor parallelism (``--model-shards 2``): first K1, K2 and K4
+    against their plain versions, bitwise, at the seven (M / 2, R) row
+    geometries a rank of full-width qwen3-1.7b at ``TP_LAYERS`` layers
+    gives them (``embed`` (75,968, 2048), ``w_*`` (3072, L 2048), ``wq`` /
+    ``wo`` (8, L 262,144), ``wk`` / ``wv`` (4, L 262,144), ``ln_*``
+    (1024, L), ``final_norm`` (1024, 1) and ``q_norm`` / ``k_norm`` (1, L
+    128)), each timed with CUDA events beside its bound and
+    ``torch.topk`` or ``index_put_``; then qwen3-1.7b at full width cut to
+    ``TP_LAYERS`` of 28 layers, 2 workers over ``--ranks 4 --model-shards
+    2 --dist-backend gloo`` (a 2 data x 2 model grid of processes sharing
+    cuda:0) through ``repro_torch.launch.train.main``: 4 async top-k
+    steps at tau_max 2 (each rank exactly 52 ``topk_ef`` and 52
+    ``topk_cr_deposit`` launches) and 2 ``topk_ef`` steps (26 + 26
+    ``topk_cr_reduce``); before each, the one-process oracle built from
+    the library with the model-2 specs (104 + 52 and 52 + 26 launches),
+    whose final params stay on the card, shared with rank 0 by IPC handle
+    (``repro_torch.launch.train.main(..., compare_to=...)``): rank 0
+    gathers each final leaf whole and compares it; the ranks' losses and
+    params agree with the oracle's within ``TP_LOSS_TOL`` and
+    ``TP_PARAM_TOL`` (the row- and vocab-parallel sums add in another
+    order); each rank's peak memory,
+    step wall and bytes by collective (the data group's ``all_gather``
+    and ``psum``, the model group's ``model_psum`` and
+    ``model_all_gather``) logged, the summed peak under 0.90 of the card.
 
 Phase 1 also logs the free disk of the checkpoint directory's filesystem
 and the free host memory.  The last three lines of standard output are the
 kernels' JSON record (K1, K2 and K4 also carry ``rwkv6_launches``,
-``moonshot_launches``, ``zamba2_launches`` and ``ranks_launches`` (each
-rank's count, by phase 36's run), K1 and K2 ``kill_resume_launches``, K10
-``zamba2_launches``), the card's name and
+``moonshot_launches``, ``zamba2_launches``, ``ranks_launches`` (each
+rank's count, by phase 36's run), ``tp_launches`` (each rank's, by phase
+37's) and ``tp_shapes`` (phase 37's times at each geometry), K1 and K2
+``kill_resume_launches``, K10 ``zamba2_launches``), the card's name and
 power limit, and the result ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -3253,6 +3278,325 @@ def run_dist(torch, kernels, records) -> None:
         torch.cuda.empty_cache()
 
 
+# phase 37: tensor parallelism over a 2 data x 2 model grid of four ranks
+TP_ARCH = "qwen3-1.7b"
+TP_LAYERS = 8
+TP_RUNS = (("async", ["--sync", "async", "--compressor", "topk", "--ef",
+                      "--overlap", "--tau-max", "2", "--async-schedule",
+                      "uniform"], 4),
+           ("topk_ef", ["--sync", "topk_ef"], 2))
+# the ranks against the one-process oracle, set before the first card run:
+# each loss within TP_LOSS_TOL (the CPU tests' bound on a bf16 forward that
+# sums its row- and vocab-parallel partials in another order), each final
+# param within TP_PARAM_TOL a step (lr 3e-3 times 0.05: bf16 rounding
+# flips a few top-k picks near the threshold, each moving one entry by
+# about lr times a gradient entry of the threshold's size)
+TP_LOSS_TOL = 2e-2
+TP_PARAM_TOL = 3e-3 * 0.05
+
+
+def tp_argv(flags, steps):
+    return ["--arch", TP_ARCH, "--n-layers", str(TP_LAYERS), *flags,
+            "--topk-ratio", str(TOPK_RATIO), "--workers", "2", "--batch",
+            "4", "--seq", "256", "--steps", str(steps), "--device", "cuda",
+            "--seed", "0", "--log-every", "1"]
+
+
+def tp_geometries(cfg):
+    """-> {leaf names: (M / 2, R)}: the distinct row geometries of a rank
+    of ``cfg`` at ``--model-shards 2``, with the leaves that have each."""
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.core.scheduler import leaf_rows_geometry
+    from repro_torch.dist.sharding import shard_leaf
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.params import param_specs
+
+    defs = TF.model_defs(cfg)
+    specs = param_specs(defs, {"model": 2})
+    out = {}
+    for path, d, spec in zip(T.paths(defs), T.leaves(defs), T.leaves(specs)):
+        whole = torch.empty(d.shape, device="meta")
+        local = shard_leaf(whole, spec, 0, 2).shape
+        geom = leaf_rows_geometry(tuple(local), spec)[:2]
+        out.setdefault(geom, []).append(path.split("/")[-1])
+    return {", ".join(names): geom for geom, names in out.items()}
+
+
+def check_tp_kernels(torch, dev, gen, records):
+    """Phase 37's first half: K1, K2 and K4 at the rank's geometries."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.cr_reduce.kernel import (topk_cr_deposit,
+                                                      topk_cr_reduce)
+    from repro_torch.kernels.cr_reduce.ref import (topk_cr_deposit_plain,
+                                                   topk_cr_reduce_plain)
+    from repro_torch.kernels.topk_ef.kernel import topk_ef
+    from repro_torch.kernels.topk_ef.ref import topk_ef_plain
+
+    cfg = dataclasses.replace(get_config(TP_ARCH), n_layers=TP_LAYERS)
+    geoms = tp_geometries(cfg)
+    require(len(geoms) == 7, f"{len(geoms)} tensor-parallel geometries, "
+            "not 7")
+    shapes = {n: {} for n in ("topk_ef", "topk_cr_deposit",
+                              "topk_cr_reduce")}
+    for names, (m, r) in geoms.items():
+        k = max(1, int(round(r * TOPK_RATIO)))
+        g = torch.randn((m, r), generator=gen, device=dev)
+        e = 0.1 * torch.randn((m, r), generator=gen, device=dev)
+        order, same_e, repeat, err = _topk_check(torch, topk_ef,
+                                                 topk_ef_plain, g, e, k)
+        require(order and same_e and repeat,
+                f"topk_ef != plain version at ({m}, {r}) ({names})")
+        records["topk_ef"]["max_abs_err"] = max(
+            records["topk_ef"]["max_abs_err"], err)
+        absw = (e + g).abs()
+        ms = time_ms(torch, lambda: topk_ef(g, e, k), warmup=2, iters=5)
+        plain = time_ms(torch, lambda: topk_ef_plain(g, e, k))
+        lib = time_ms(torch, lambda: torch.topk(absw, k, dim=1))
+        nbytes = 12 * m * r + 8 * m * k
+        shapes["topk_ef"][names] = dict(shape=[m, r], k=k, ms=ms,
+                                        plain_ms=plain, library_ms=lib,
+                                        bound_ms=bound_ms(nbytes))
+        log(f"tp check topk_ef ({m}, {r}) k={k} [{names}]: bitwise in the "
+            f"documented order {order}, new_err {same_e}, run to run "
+            f"{repeat}; kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"torch.topk {lib:.4f} ms, bound {bound_ms(nbytes):.4f} ms "
+            f"({nbytes} bytes)")
+        del absw, g, e
+
+        # two workers' payloads from K1 on fresh gradients, gathered
+        vals, idx = [], []
+        for _ in range(2):
+            g = torch.randn((m, r), generator=gen, device=dev)
+            v, i, _ = topk_ef(g, None, k, out_err=g)
+            vals.append(v)
+            idx.append(i)
+            del g
+        vals, idx = torch.stack(vals), torch.stack(idx)
+        acc = 0.01 * torch.randn((3, m, r), generator=gen, device=dev)
+        slots = torch.tensor([0, 2], dtype=torch.int32, device=dev)
+        w = torch.ones((2,), dtype=torch.float32, device=dev)
+        want = topk_cr_deposit_plain(acc.clone(), vals, idx, slots, w)
+        got = topk_cr_deposit(acc.clone(), vals, idx, slots, w)
+        again = topk_cr_deposit(acc.clone(), vals, idx, slots, w)
+        torch.cuda.synchronize()
+        dep_same = same_bits(torch, got, want) and same_bits(torch, got,
+                                                             again)
+        dep_err = float((got - want).abs().max())
+        require(dep_same, f"topk_cr_deposit != plain version at (3, {m}, "
+                f"{r}) ({names})")
+        del got, want, again
+        ms = time_ms(torch, lambda: topk_cr_deposit(acc, vals, idx, slots,
+                                                    w), warmup=2, iters=5)
+        plain = time_ms(torch, lambda: topk_cr_deposit_plain(
+            acc, vals, idx, slots, w))
+        rows = torch.arange(m, device=dev)[None, :, None]
+        flat = ((slots.long()[:, None, None] * m + rows) * r
+                + idx.long()).reshape(-1)
+        prods = vals.reshape(-1)
+        acc_flat = acc.view(-1)
+        lib = time_ms(torch, lambda: acc_flat.index_put_(
+            (flat,), prods, accumulate=True))
+        nbytes = 2 * m * k * 8 + int(torch.unique(flat).numel()) * 8
+        shapes["topk_cr_deposit"][names] = dict(
+            shape=[3, m, r], k=k, ms=ms, plain_ms=plain, library_ms=lib,
+            bound_ms=bound_ms(nbytes))
+        records["topk_cr_deposit"]["max_abs_err"] = max(
+            records["topk_cr_deposit"]["max_abs_err"], dep_err)
+        log(f"tp check topk_cr_deposit (3, {m}, {r}) S=2 k={k} [{names}]: "
+            f"bitwise vs plain and run to run {dep_same}; kernel {ms:.4f} "
+            f"ms, plain {plain:.4f} ms, index_put_(accumulate=True) "
+            f"{lib:.4f} ms, bound {bound_ms(nbytes):.4f} ms")
+        del acc, acc_flat, flat, prods, rows
+
+        v16 = vals.to(torch.bfloat16)
+        want = topk_cr_reduce_plain(v16, idx, w, r)
+        got = topk_cr_reduce(v16, idx, w, r)
+        route = topk_cr_reduce.last_route()
+        again = topk_cr_reduce(v16, idx, w, r)
+        torch.cuda.synchronize()
+        red_same = same_bits(torch, got, want) and same_bits(torch, got,
+                                                             again)
+        red_err = float((got - want).abs().max())
+        require(red_same, f"topk_cr_reduce != plain version at (2, {m}, "
+                f"{k}) -> ({m}, {r}) ({names})")
+        del got, want, again
+        ms = time_ms(torch, lambda: topk_cr_reduce(v16, idx, w, r),
+                     warmup=2, iters=5)
+        plain = time_ms(torch, lambda: topk_cr_reduce_plain(v16, idx, w, r))
+        rows = torch.arange(m, device=dev)[None, :, None]
+        flat = (rows * r + idx.long()).reshape(-1)
+        prods = v16.float().reshape(-1)
+        buf = torch.empty((m * r,), dtype=torch.float32, device=dev)
+        lib = time_ms(torch, lambda: buf.zero_().index_put_(
+            (flat,), prods, accumulate=True))
+        nbytes = 2 * m * k * (2 + 4) + 4 * 2 + 4 * m * r
+        shapes["topk_cr_reduce"][names] = dict(
+            shape=[2, m, k], r=r, ms=ms, plain_ms=plain, library_ms=lib,
+            bound_ms=bound_ms(nbytes), route=route)
+        records["topk_cr_reduce"]["max_abs_err"] = max(
+            records["topk_cr_reduce"]["max_abs_err"], red_err)
+        log(f"tp check topk_cr_reduce (2, {m}, {k}) -> ({m}, {r}) bf16 vals "
+            f"[{names}]: bitwise vs plain and run to run {red_same}, "
+            f"{route} route; kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"zero_ + index_put_ {lib:.4f} ms, bound {bound_ms(nbytes):.4f} "
+            "ms")
+        del vals, idx, v16, flat, prods, buf, rows, slots, w
+        torch.cuda.empty_cache()
+    for name, per in shapes.items():
+        records[name]["tp_shapes"] = per
+
+
+def run_tp(torch, kernels, records) -> None:
+    """Phase 37's second half (see the module docstring)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMDataset, to_device
+    from repro_torch.dist.workers import WorkerGroup
+    from repro_torch.kernels.cr_reduce.kernel import topk_cr_reduce
+    from repro_torch.kernels.topk_ef.kernel import topk_ef
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.params import (count_params, init_params,
+                                           param_specs)
+
+    dev = torch.device("cuda")
+    base = get_config(TP_ARCH)
+    cfg = dataclasses.replace(base, n_layers=TP_LAYERS)
+    n_leaves = model_leaves(TP_ARCH, cfg)
+    defs = TF.model_defs(cfg)
+    entries = count_params(defs)
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"tp: {TP_ARCH} at full width, {TP_LAYERS} of {base.n_layers} "
+        f"layers: {n_leaves} leaves, {entries} entries; 2 workers over a "
+        f"2 data x 2 model grid of four ranks on cuda:0 over gloo; each "
+        f"rank holds about half the entries, {DIST_BYTES_PER_ENTRY} B an "
+        f"entry (phase 36's rate): "
+        f"{2 * DIST_BYTES_PER_ENTRY * entries / total:.3f} of the card for "
+        f"the four (computed); {host_resources()}")
+
+    for name, flags, steps in TP_RUNS:
+        argv = tp_argv(flags, steps)
+        want_one = {"topk_ef": n_leaves * steps}
+        want_one["topk_cr_deposit" if name == "async" else
+                 "topk_cr_reduce"] = n_leaves * steps
+        want_oracle = {k: 2 * v if k == "topk_ef" else v
+                       for k, v in want_one.items()}
+
+        # the oracle: both workers in this process, the model-2 specs
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        args = train._parse(argv)
+        specs = param_specs(defs, {"model": 2})
+        params = init_params(defs, torch.Generator(device=dev).manual_seed(
+            args.seed), dev)
+        opt_state, state, run = train._build(args, cfg, WorkerGroup(2),
+                                             params, specs)
+        data = SyntheticLMDataset(cfg.vocab_size, args.seq, args.batch,
+                                  seed=args.seed)
+        losses_o, step_o = [], []
+        t0 = time.perf_counter()
+        for t in range(steps):
+            batch = to_device(data.batch(t), dev)
+            t1 = time.perf_counter()
+            params, opt_state, state, metrics = run(params, opt_state,
+                                                    state, batch)
+            torch.cuda.synchronize()
+            step_o.append(time.perf_counter() - t1)
+            losses_o.append(float(metrics["loss"]))
+        wall_o = time.perf_counter() - t0
+        counts = {k.name: k.launches for k in kernels}
+        peak_o = torch.cuda.max_memory_allocated()
+        log(f"tp {name} oracle (one process, 2 workers, model-2 specs): "
+            f"{wall_o:.2f} s; losses {losses_o}; step_s "
+            f"{[round(x, 4) for x in step_o]}; peak {peak_o / total:.4f} of "
+            f"the card; launches {json.dumps(counts)}")
+        for k, count in counts.items():
+            require(count == want_oracle.get(k, 0), f"tp {name} oracle: {k} "
+                    f"launched {count} times, not {want_oracle.get(k, 0)}")
+        # the oracle's final params stay on the card; rank 0 opens them by
+        # IPC handle and compares its gathered leaves with them
+        oracle = [p.detach() for p in T.leaves(params)]
+        del params, opt_state, state, run, metrics, batch
+        # the kernels' kept scratch grows to the oracle's whole rows
+        # (151,936 for embed): give it back before the ranks start
+        topk_ef.release_scratch()
+        topk_cr_reduce.release_scratch()
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"tp: this process holds {torch.cuda.memory_allocated()} bytes "
+            f"allocated, {torch.cuda.memory_reserved()} reserved; free on "
+            f"the card {torch.cuda.mem_get_info()[0]}")
+
+        # the ranks: four processes sharing cuda:0; rank 0 gathers each
+        # final leaf whole and compares it with the oracle's
+        for k in kernels:
+            k.launches = 0
+        rep = {}
+        t0 = time.perf_counter()
+        hist = train.main(argv + ["--ranks", "4", "--model-shards", "2",
+                                  "--dist-backend", "gloo"], report=rep,
+                          compare_to=oracle)
+        wall_r = time.perf_counter() - t0
+        require(all(k.launches == 0 for k in kernels),
+                "the parent launched a kernel")
+        peaks = [r["max_memory_allocated"] for r in rep["ranks"]]
+        one_rank = DIST_BYTES_PER_ENTRY * entries
+        for r in rep["ranks"]:
+            log(f"tp {name} rank {r['rank']} on {r['device']}: step_s "
+                f"{[round(x, 4) for x in r['step_s']]}; bytes a step by "
+                f"collective {r['wire']}; peak {r['max_memory_allocated']} "
+                f"bytes ({r['max_memory_allocated'] / total:.4f} of the "
+                f"card, {r['max_memory_allocated'] / one_rank:.4f} of a "
+                f"phase-36 rank's {one_rank:.0f} at this cut, computed); "
+                f"spawn to start {r['spawn_s']:.2f} s, rendezvous "
+                f"{r['mesh_s']:.2f} s, set-up before the first step "
+                f"{r['setup_s']:.2f} s, gathering and comparing the final "
+                f"leaves {r['compare_s']:.2f} s; launches "
+                f"{json.dumps(r['launches'])}")
+            for k, count in r["launches"].items():
+                require(count == want_one.get(k, 0), f"tp {name} rank "
+                        f"{r['rank']}: {k} launched {count} times, not "
+                        f"{want_one.get(k, 0)}")
+            require(any(k.startswith("model_") for k in r["wire"][0]),
+                    f"tp {name} rank {r['rank']}: no model-group bytes")
+        log(f"tp {name}: 4 ranks {wall_r:.2f} s (spawn, init and the "
+            f"comparison included); summed peak {sum(peaks)} bytes, "
+            f"{sum(peaks) / total:.4f} of the card")
+        require(sum(peaks) <= 0.9 * total,
+                "the ranks' summed peak is above 90% of the card")
+        losses_r = [r["loss"] for r in hist]
+        loss_err = max(abs(a - b) for a, b in zip(losses_r, losses_o))
+        diffs = rep["leaf_max_abs"]
+        worst = max(diffs.values())
+        log(f"tp {name}: losses {losses_r} (ranks) vs the oracle's "
+            f"{losses_o}, largest difference {loss_err} (limit "
+            f"{TP_LOSS_TOL}); final params: largest difference {worst} "
+            f"(limit {TP_PARAM_TOL * steps}); by leaf {json.dumps(diffs)}")
+        require(len(losses_r) == steps and np.all(np.isfinite(losses_r)),
+                f"tp {name}: the ranks' losses are not finite")
+        require(loss_err <= TP_LOSS_TOL,
+                f"tp {name}: the ranks' losses are off the oracle's")
+        require(len(diffs) == n_leaves and worst <= TP_PARAM_TOL * steps,
+                f"tp {name}: the ranks' final params are off the oracle's")
+        for k in want_one:
+            records[k].setdefault("tp_launches", {})[name] = [
+                r["launches"][k] for r in rep["ranks"]]
+        del hist, oracle
+        gc.collect()
+        # the oracle's leaves were shared by IPC handle: free them here too
+        torch.cuda.ipc_collect()
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3438,6 +3782,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     run_dist(torch, all_kernels(), records)
+
+    # tensor parallelism: K1, K2 and K4 at a rank's row geometries, then
+    # the grid of four ranks against the one-process oracle, every kernel's
+    # counter zeroed just before each run
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_tp_kernels(torch, dev, gen, records)
+    run_tp(torch, all_kernels(), records)
     log(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -3447,7 +3799,8 @@ def main() -> int:
         "PERF.md) " + ", ".join(f"{name} {ms} ms"
                                 for name, ms in EARLIER_MS.items()))
     extra = ("sector_bound_ms", "rwkv6_launches", "moonshot_launches",
-             "zamba2_launches", "kill_resume_launches", "ranks_launches")
+             "zamba2_launches", "kill_resume_launches", "ranks_launches",
+             "tp_launches", "tp_shapes")
     line = [{k: records[kern.name][k] for k in keys
              + tuple(k for k in extra if k in records[kern.name])}
             for kern in all_kernels()]

@@ -26,13 +26,17 @@ checking the whole structure against the sidecar, so no second copy of
 the state is allocated on the device.
 
 Workers over ranks: a tree may hold `repro_torch.dist.sharding.WorkerRows`
-leaves (a rank's rows of a per-worker leaf, ``sharding.gather_state``).
-Such a leaf is written as the whole ``(p, ...)`` leaf, gathered over the
+leaves (a rank's rows of a per-worker leaf, and under ``--model-shards m``
+its model slice of a sharded leaf: ``sharding.gather_state``,
+``sharding.shard_view``).  Such a leaf is written whole, gathered over the
 ranks when the writer reaches it, so every rank calls
 :func:`save_checkpoint` with the same tree and one of them (``write``)
-writes the file a one-process run would write.  A restore into one
-scatters each rank's rows in place, each rank reading the file itself, so
-a checkpoint of either layout resumes under the other.
+writes the file a one-process run would write (with ``m > 1``, the file
+of the reference's ``--model-shards m`` run).  A restore into one scatters
+each rank's part in place, each rank reading the file itself, so a
+checkpoint resumes under any layout of the same ``m``.
+:func:`check_checkpoint` checks a checkpoint against a state without
+reading its arrays.
 """
 from __future__ import annotations
 
@@ -297,6 +301,14 @@ def _rebuild(node: dict, like, take, device):
             return like
         return out
     return _leaf_from(node, take(), like, device)
+
+
+def check_checkpoint(ckpt_dir: str, step: int, like) -> None:
+    """Raise ``ValueError`` unless checkpoint ``step``'s sidecar has
+    ``like``'s structure, leaf kinds, shapes and dtypes (``like``'s tensors
+    may be on the ``meta`` device)."""
+    meta = _read_sidecar(_path(ckpt_dir, step))
+    _check_like(meta["tree"], like, f"step_{step:08d}")
 
 
 def load_checkpoint(ckpt_dir: str, step: int, like=None, device=None):

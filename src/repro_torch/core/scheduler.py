@@ -27,7 +27,15 @@ worker dim over the process's own workers, (p / N, *leaf).
 A leaf is viewed as (M, R) rows: M = product of the ``model``-sharded dims
 (kept local), R = the rest (compressed).  With a ``model`` axis of size 1
 every spec is all-``None``, so M = 1 and the single row is the whole
-stacked leaf — the shape the port's kernels are built for.
+stacked leaf — the shape the port's kernels are built for.  Under
+``--model-shards m`` (a `repro_torch.models.actx` model group) a rank
+holds its model shard of each leaf: its rows are the whole leaf's rows
+``[j M / m, (j + 1) M / m)`` with the whole R, so it compresses, gathers
+over its data group and reduces those rows alone, with ``k`` from the
+whole R; a replicated leaf (M = 1) is compressed whole on every model
+rank.  The elastic buckets are balanced on whole-leaf sizes, and the
+bucket norms and gap metrics count a sharded leaf's squares summed over
+the model group and a replicated leaf's once (:class:`_Squares`).
 """
 from __future__ import annotations
 
@@ -39,6 +47,7 @@ import torch
 from repro_torch import tree as T
 from repro_torch.dist.workers import WorkerGroup, WorkerSum, as_group
 from repro_torch.kernels.cr_reduce import ops as CR
+from repro_torch.models import actx
 
 
 @dataclass(frozen=True)
@@ -90,14 +99,16 @@ def _split_model_dims(spec, ndim: int):
 
 
 def _to_rows(g: torch.Tensor, spec):
-    """Leaf -> (M, R) rows (a view when no dim is model-sharded)."""
+    """Leaf -> contiguous (M, R) rows, as the kernels take them: a view
+    when the model-sharded dim leads (or no dim is sharded), else a copy
+    (a (L, d) leaf sharded on d permutes to (d, L) without one)."""
     model, other = _split_model_dims(spec, g.ndim)
     perm = model + other
     gt = g.permute(perm)
     m = 1
     for i in model:
         m *= g.shape[i]
-    return gt.reshape(m, -1), perm, tuple(gt.shape)
+    return gt.reshape(m, -1).contiguous(), perm, tuple(gt.shape)
 
 
 def _from_rows(rows: torch.Tensor, perm, tshape):
@@ -223,12 +234,15 @@ def _leaf_onebit_sync(group, payloads, perm, tshape):
 # elastic bucketing
 # ---------------------------------------------------------------------------
 
-def bucket_assignment(grads_like, n_buckets: int) -> list[int]:
+def bucket_assignment(grads_like, n_buckets: int,
+                      sizes: list[int] | None = None) -> list[int]:
     """Assign leaves (a tree, or a list of leaves in tree order) to buckets
-    contiguously by traversal order, balancing by element count."""
-    leaves = grads_like if isinstance(grads_like, (list, tuple)) \
-        else T.leaves(grads_like)
-    sizes = [x.numel() for x in leaves]
+    contiguously by traversal order, balancing by element count (or by
+    ``sizes``, the whole leaves' under a model group)."""
+    if sizes is None:
+        leaves = grads_like if isinstance(grads_like, (list, tuple)) \
+            else T.leaves(grads_like)
+        sizes = [x.numel() for x in leaves]
     target = sum(sizes) / n_buckets
     assign, b, acc = [], 0, 0.0
     for s in sizes:
@@ -239,13 +253,18 @@ def bucket_assignment(grads_like, n_buckets: int) -> list[int]:
     return assign
 
 
-def _bucket_norms(leaves, assign, n_buckets: int) -> torch.Tensor:
-    """(n_buckets,) f32: the squared norm of each bucket's leaves."""
-    norms = torch.zeros((n_buckets,), dtype=torch.float32,
-                        device=leaves[0].device)
-    for a, leaf in zip(assign, leaves):
-        norms[a] += torch.sum(torch.square(leaf))
-    return norms
+def _bucket_norms(leaves, assign, n_buckets: int,
+                  sharded=None) -> torch.Tensor:
+    """(n_buckets,) f32: the squared norm of each bucket's leaves (under a
+    model group, ``sharded`` flags each leaf the model shards)."""
+    norms = [torch.zeros((n_buckets,), dtype=torch.float32,
+                         device=leaves[0].device)
+             for _ in range(1 if sharded is None else 2)]
+    for i, (a, leaf) in enumerate(zip(assign, leaves)):
+        norms[0 if sharded is None else sharded[i]][a] += \
+            torch.sum(torch.square(leaf))
+    return norms[0] if sharded is None else actx.model_total(norms[1],
+                                                             norms[0])
 
 
 def norm_gate_mask(norms: torch.Tensor, beta: float, budget_b2: float = 0.0,
@@ -272,11 +291,42 @@ def static_gate_mask(step: int, n_buckets: int, period: int) -> list[bool]:
 # strategy entry point
 # ---------------------------------------------------------------------------
 
-def _gap2(means, device) -> torch.Tensor:
-    gap2 = torch.zeros((), dtype=torch.float32, device=device)
-    for x in means:
-        gap2 = gap2 + torch.sum(torch.square(x))
-    return gap2
+class _Squares:
+    """A running sum over leaves of the whole model, fed leaf ``i``'s
+    squares: one sum in feeding order, or under a model group (``sharded``
+    flags each leaf the model shards) a sum of the sharded leaves' added
+    over the group and one of the replicated leaves' counted once."""
+
+    def __init__(self, device, sharded=None):
+        self.sharded = sharded
+        self.parts = [torch.zeros((), dtype=torch.float32, device=device)
+                      for _ in range(1 if sharded is None else 2)]
+
+    def add(self, i: int, value: torch.Tensor) -> None:
+        k = 0 if self.sharded is None else self.sharded[i]
+        self.parts[k] = self.parts[k] + value
+
+    def total(self) -> torch.Tensor:
+        return self.parts[0] if self.sharded is None \
+            else actx.model_total(self.parts[1], self.parts[0])
+
+
+def model_sharded(specs) -> list[bool] | None:
+    """Under a model group, whether the model shards each leaf of the
+    param ``specs``; ``None`` without one."""
+    if actx.current() is None:
+        return None
+    if specs is None:
+        raise ValueError("under a model group the sync needs the param "
+                         "specs")
+    return [actx.model_dim(s) is not None for s in T.leaves(specs)]
+
+
+def _gap2(means, device, sharded=None) -> torch.Tensor:
+    gap2 = _Squares(device, sharded)
+    for i, x in enumerate(means):
+        gap2.add(i, torch.sum(torch.square(x)))
+    return gap2.total()
 
 
 def _worker_mean(group, stack: torch.Tensor, wire) -> torch.Tensor:
@@ -307,6 +357,7 @@ def sync_gradients(cfg: SyncConfig, worker_grads, state: dict, specs=None,
     wire = torch.bfloat16 if cfg.wire_dtype == "bf16" else torch.float32
     step = state["step"]
     n, td = 0, None
+    sharded = None if cfg.strategy == "exact" else model_sharded(specs)
 
     if cfg.strategy == "exact":
         # each worker's leaves in the wire dtype, summed in worker order
@@ -368,20 +419,26 @@ def sync_gradients(cfg: SyncConfig, worker_grads, state: dict, specs=None,
                 synced.append(_leaf_onebit_sync(group, payloads[i], perm,
                                                 tshape))
             payloads[i] = None
-        gap2 = (_gap2((group.pmean(list(e)) for e in per_worker), device)
+        gap2 = (_gap2((group.pmean(list(e)) for e in per_worker), device,
+                      sharded)
                 if cfg.track_gap else torch.zeros((), device=device))
         state["step"] = step + 1
         return T.unflatten(td, synced), state, {"gap2_over_alpha2": gap2}
 
     # elastic: add each worker's gradient into its residual, in place
-    assign = bucket_assignment([r[0] for r in per_worker], cfg.n_buckets)
+    assign = bucket_assignment(
+        [r[0] for r in per_worker], cfg.n_buckets,
+        None if sharded is None else
+        [r[0].numel() * (actx.current().size if sh else 1)
+         for r, sh in zip(per_worker, sharded)])
     norm_gate = cfg.gate != "static"
     if not norm_gate and static_phase is None:
         raise ValueError("the static gate needs a phase fixed when the "
                          "step is built")
     # the budget needs LAST step's gap: the residual before this step's
     # gradients are added
-    gap_prev = (_gap2((group.pmean(list(r)) for r in per_worker), device)
+    gap_prev = (_gap2((group.pmean(list(r)) for r in per_worker), device,
+                      sharded)
                 if norm_gate and cfg.budget_b > 0.0 else None)
     norms = WorkerSum(group)
     for grads in worker_grads:
@@ -393,7 +450,7 @@ def sync_gradients(cfg: SyncConfig, worker_grads, state: dict, specs=None,
             flat_g[i] = None
         del flat_g
         if norm_gate:
-            norms.add(_bucket_norms(resid, assign, cfg.n_buckets))
+            norms.add(_bucket_norms(resid, assign, cfg.n_buckets, sharded))
         n += 1
     _check_workers(n, n_local)
     if norm_gate:
@@ -405,14 +462,14 @@ def sync_gradients(cfg: SyncConfig, worker_grads, state: dict, specs=None,
         mask = static_gate_mask(static_phase, cfg.n_buckets,
                                 cfg.phase_period)
     synced = []
-    gap2 = torch.zeros((), dtype=torch.float32, device=device)
-    for a, r in zip(assign, per_worker):
+    gap2 = _Squares(device, sharded)
+    for i, (a, r) in enumerate(zip(assign, per_worker)):
         m = mask[a]
         if not norm_gate and not m:
             synced.append(torch.zeros(r.shape[1:], dtype=torch.float32,
                                       device=device))
             if cfg.track_gap:
-                gap2 = gap2 + torch.sum(torch.square(group.pmean(list(r))))
+                gap2.add(i, torch.sum(torch.square(group.pmean(list(r)))))
             continue
         mean = _worker_mean(group, r, wire)
         if not norm_gate:            # a synced bucket: its backlog is sent
@@ -423,11 +480,12 @@ def sync_gradients(cfg: SyncConfig, worker_grads, state: dict, specs=None,
         if cfg.track_gap:
             # pmean(r * keep) == pmean(r) * keep bit for bit: keep is 0 or 1
             f32 = mean if wire == torch.float32 else group.pmean(list(r))
-            gap2 = gap2 + torch.sum(torch.square(f32 * keep))
+            gap2.add(i, torch.sum(torch.square(f32 * keep)))
         synced.append(mean.mul_(m))
         r.mul_(keep)
     state["step"] = step + 1
-    return T.unflatten(td, synced), state, {"gap2_over_alpha2": gap2}
+    return T.unflatten(td, synced), state, {"gap2_over_alpha2":
+                                            gap2.total()}
 
 
 def _check_workers(got: int, want: int) -> None:

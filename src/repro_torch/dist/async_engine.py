@@ -45,6 +45,11 @@ Delivery follows ``AsyncConfig.overlap``:
 
 Both deliver the same mass per step, so their trajectories agree; with
 ``tau_max = 0`` and no compressor the engine is the exact step bit for bit.
+Under ``--model-shards m`` (a `repro_torch.models.actx` model group) each
+rank compresses, deposits and takes its own rows: its ``acc`` rings are
+(cap, M / m, R) and its ``err`` / ``buf`` hold its model shard, the
+payloads are gathered over its data group only, and the fused path stays
+fused (there is no fallback to the densified one).
 State (``acc``, ``buf``, ``err``, parameters and momentum) is updated in
 place, as the reference donates it.
 """
@@ -58,13 +63,15 @@ import torch
 from repro_torch import tree as T
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import delivery as DLV
-from repro_torch.core.scheduler import (_from_rows, ef_compress_leaf,
+from repro_torch.core.scheduler import (_from_rows, _Squares,
+                                        ef_compress_leaf,
                                         ef_compress_leaf_compact,
-                                        leaf_rows_geometry)
+                                        leaf_rows_geometry, model_sharded)
 from repro_torch.dist.train import (guarded_update, tree_all_finite,
                                     worker_grads)
 from repro_torch.dist.workers import WorkerSum, as_group
 from repro_torch.kernels.cr_reduce import ops as CR
+from repro_torch.models import actx
 
 
 @dataclass(frozen=True)
@@ -215,6 +222,9 @@ class AsyncTrainStep:
                 # a poisoned worker transmits zeros (read on the host
                 # once; the gradient leaves are zeroed in place)
                 finite = bool(tree_all_finite(flat_g))
+                if actx.current() is not None:
+                    # the worker's decision, over its model shards
+                    finite = actx.current().group_all(finite, device)
                 if not finite:
                     for g in flat_g:
                         g.zero_()
@@ -252,11 +262,13 @@ class AsyncTrainStep:
 
         gap2 = torch.zeros((), device=device)
         if acfg.track_gap:
+            squares = _Squares(device, model_sharded(self.specs))
             for i in range(len(synced)):
                 total = fresh[i].total()
                 fresh[i] = None
-                gap2 = gap2 + torch.sum(torch.square(synced[i] - total / n))
+                squares.add(i, torch.sum(torch.square(synced[i] - total / n)))
                 del total
+            gap2 = squares.total()
         _, opt_state, _ = guarded_update(self.opt, synced, opt_state, flat_p,
                                          skip_nonfinite=acfg.skip_nonfinite)
         state["step"] = step + 1

@@ -15,7 +15,12 @@ Two training paths share one loss:
 Parameters are a nested dict of float32 tensors in the reference's layout;
 gradients come back as a tree of the same structure.  Optimizer state and
 updates work on the flat leaf list (sorted-key order), and parameters are
-updated in place.
+updated in place.  Under a model group (``--model-shards m``,
+`repro_torch.models.actx`) both are this rank's model shards: the loss is
+the vocab-parallel cross entropy when the logits are sharded on the
+vocab, the ``grad_norm`` metric counts a sharded leaf's squares summed
+over the group and a replicated leaf's once (:func:`model_norm`), and the
+skip-step guard's decision is the world's.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.scheduler import (SyncConfig, init_sync_state,
                                         sync_gradients)
 from repro_torch.dist.workers import as_group, shard_batch
+from repro_torch.models import actx
 from repro_torch.models import transformer as TF
 from repro_torch.optim import apply_updates, global_norm
 from repro_torch.serve.sampling import SampleConfig, sample_tokens
@@ -37,8 +43,12 @@ def loss_fn(cfg: ArchConfig, params, batch: dict, layer_sinks=None):
     dense stack).  An optional ``batch["loss_scale"]`` (B,) multiplies the
     loss, as in the reference's fault-injection channel."""
     logits, aux = TF.forward(cfg, params, batch, layer_sinks)
-    logp = F.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, batch["labels"].long()[..., None])
+    start = TF.logits_vocab_start(cfg)
+    if start is None:
+        logp = F.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(logp, -1, batch["labels"].long()[..., None])
+    else:
+        nll = actx.vocab_parallel_nll(logits.float(), batch["labels"], start)
     ce = torch.mean(nll)
     loss = ce + cfg.router_aux_weight * aux
     if "loss_scale" in batch:
@@ -109,6 +119,21 @@ def worker_grads(cfg: ArchConfig, params, batch: dict, workers,
         yield mean_grads(cfg, params, shard, grad_accum)[::2]
 
 
+def model_norm(leaves, specs) -> torch.Tensor:
+    """The global norm of the whole model's ``leaves`` from this rank's
+    shards of them: under a model group a leaf its spec (``specs``, the
+    param specs) shards counts its squares summed over the group, a
+    replicated leaf once; without one, ``optim.global_norm``."""
+    if actx.current() is None:
+        return global_norm(leaves)
+    parts = [torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+             for _ in range(2)]
+    for x, spec in zip(leaves, T.leaves(specs)):
+        sharded = actx.model_dim(spec) is not None
+        parts[sharded] = parts[sharded] + torch.sum(torch.square(x.float()))
+    return torch.sqrt(actx.model_total(parts[1], parts[0]))
+
+
 def tree_all_finite(leaves) -> torch.Tensor:
     """Scalar bool tensor: every leaf is finite everywhere."""
     out = torch.all(torch.isfinite(leaves[0]))
@@ -129,6 +154,9 @@ def guarded_update(opt, grads, opt_state, params, *, skip_nonfinite: bool):
     no finiteness reduction runs."""
     if skip_nonfinite:
         finite = bool(tree_all_finite(grads))
+        ctx = actx.current()
+        if ctx is not None:
+            finite = ctx.world_all(finite, grads[0].device)
         if not finite:
             return params, opt_state, torch.ones((), device=params[0].device)
     updates, opt_state = opt.update(grads, opt_state, params)
@@ -137,18 +165,20 @@ def guarded_update(opt, grads, opt_state, params, *, skip_nonfinite: bool):
 
 
 def make_train_step(cfg: ArchConfig, opt, grad_accum: int = 1, *,
-                    skip_nonfinite: bool = False):
+                    skip_nonfinite: bool = False, specs=None):
     """Exact-sync step ``(params, opt_state, batch) -> (params, opt_state,
     metrics)`` on the whole batch (over ``grad_accum`` microbatches) — the
     perfectly-consistent baseline every relaxation is compared against.
     ``skip_nonfinite`` arms the :func:`guarded_update` skip-step guard and
     adds a ``nonfinite`` 0/1 metric; off (the default) the step is
-    unchanged."""
+    unchanged.  Under a model group ``specs`` (the param specs) is
+    needed for the ``grad_norm`` metric."""
 
     def step(params, opt_state, batch):
         loss, parts, grads = mean_grads(cfg, params, batch, grad_accum)
         flat_g = T.leaves(grads)
-        metrics = {"loss": loss, "grad_norm": global_norm(flat_g), **parts}
+        metrics = {"loss": loss, "grad_norm": model_norm(flat_g, specs),
+                   **parts}
         _, opt_state, nonfinite = guarded_update(
             opt, flat_g, opt_state, T.leaves(params),
             skip_nonfinite=skip_nonfinite)

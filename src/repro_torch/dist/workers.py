@@ -1,9 +1,12 @@
 """Data-parallel workers and their collectives (the counterpart of the
 reference's ``shard_map`` over the ``data`` and ``pod`` mesh axes).
 
-A :class:`WorkerGroup` holds ``p`` workers laid over the ranks of a
+A :class:`WorkerGroup` holds ``p`` workers laid over the data ranks of a
 `repro_torch.launch.mesh.RankLayout`: this process runs the ``p / N``
-contiguous workers of its rank, one after another.  Worker ``w`` gets
+contiguous workers of its data rank, one after another (``N`` data ranks;
+under ``--model-shards m`` the ``m`` ranks of a model group run the same
+workers on their model shards, and the group's collectives run among the
+ranks of one model index).  Worker ``w`` gets
 batch rows ``[w * B/p, (w+1) * B/p)``, exactly the slice
 ``batch_shard_specs`` gives data shard ``w``.  With one rank (``N = 1``) the
 group is the in-process loop over all ``p`` workers and the collectives are
@@ -18,28 +21,27 @@ plain tensor ops.  With more, they go through ``torch.distributed``:
   One process keeps a running sum; over ranks the local tensors are
   gathered first.
 
-The tensors cross the wire as raw bytes, whatever their dtype.  ``nccl``
-gathers on the rank's card (a leaf asked for on the host moves there
-after).  ``gloo`` moves every tensor through one host buffer the group
-keeps (page-locked when the rank runs on a card), always the same way,
-and sends each rank's rows to every other rank with point-to-point
-messages: on an H100 host, 512 MB a rank, gloo's ring all-gather ran at
-0.556-0.631 GB/s a rank and the paired sends at 1.048-1.170
-(``tools/gloo_gather_rates.py``; PERF.md section 6).  The group
+The tensors cross the wire as raw bytes, whatever their dtype
+(`repro_torch.launch.mesh.Exchange`).  ``nccl`` gathers on the rank's card
+(a leaf asked for on the host moves there after).  ``gloo`` moves every
+tensor through one host buffer, always the same way, and sends each rank's
+rows to every other data rank with point-to-point messages that name the
+peers' global ranks: on an H100 host, 512 MB a rank, gloo's ring
+all-gather ran at 0.556-0.631 GB/s a rank and the paired sends at
+1.048-1.170 (``tools/gloo_gather_rates.py``; PERF.md section 6).  The group
 counts what each rank sends by ``repro.analysis.audit``'s byte model, under
 the reference's name for the collective: a gather its output (``p`` times
 one worker's payload), a ``psum`` (the sums and means) twice one worker's
-payload.
+payload; the model group's sums and gathers
+(`repro_torch.models.actx.ModelGroup`) count under ``model_psum`` and
+``model_all_gather`` beside them.
 """
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
+import torch.distributed as dist  # noqa: F401  (the collectives' module)
 
-from repro_torch.launch.mesh import RankLayout
-
-# bytes a gloo message carries at most
-_CHUNK_BYTES = 1 << 26
+from repro_torch.launch.mesh import Exchange, RankLayout, process_group
 
 
 def shard_batch(batch: dict, n: int) -> list[dict]:
@@ -60,13 +62,14 @@ class WorkerGroup:
 
     def __init__(self, n_workers: int, layout: RankLayout | None = None):
         layout = layout or RankLayout()
-        if n_workers < 1 or n_workers % layout.world:
+        if n_workers < 1 or n_workers % layout.data_world:
             raise ValueError(f"{n_workers} workers cannot be split evenly "
-                             f"over {layout.world} ranks")
+                             f"over {layout.data_world} ranks")
         self.n, self.layout = n_workers, layout
         self.local = layout.local_workers(n_workers)
         self.wire: dict[str, dict] = {}
-        self._stage = None          # gloo's host buffer, grown on demand
+        self._exchange = Exchange(layout, layout.data_peers(),
+                                  process_group("data"))
 
     @property
     def n_local(self) -> int:
@@ -74,7 +77,8 @@ class WorkerGroup:
 
     @property
     def distributed(self) -> bool:
-        return self.layout.world > 1
+        """Whether the workers are laid over more than one data rank."""
+        return self.layout.data_world > 1
 
     # -- wire accounting ---------------------------------------------------
     def reset_wire(self) -> None:
@@ -98,7 +102,7 @@ class WorkerGroup:
     def all_gather(self, items: list) -> torch.Tensor:
         """One tensor per local worker -> ``(p, ...)`` in worker order."""
         local = torch.stack(items)
-        self._count("all_gather", local.nbytes * self.layout.world)
+        self._count("all_gather", local.nbytes * self.layout.data_world)
         return self.gather_rows(local) if self.distributed else local
 
     def worker_sum(self, items: list) -> torch.Tensor:
@@ -116,44 +120,10 @@ class WorkerGroup:
 
     def gather_rows(self, local: torch.Tensor,
                     device: torch.device | None = None) -> torch.Tensor:
-        """This rank's ``(p / N, ...)`` rows -> every rank's, ``(p, ...)``
-        in worker order, on ``device`` (default ``local``'s).  Uncounted:
-        the callers above count the wire."""
-        world = self.layout.world
-        device = local.device if device is None else device
-        shape = (world * local.shape[0],) + tuple(local.shape[1:])
-        src = local.contiguous().reshape(-1).view(torch.uint8)
-        if self.layout.backend == "nccl":
-            # nccl gathers on the rank's card; the whole leaf moves on
-            out = torch.empty(shape, dtype=local.dtype, device=local.device)
-            dist.all_gather_into_tensor(
-                out.view(-1).view(torch.uint8).view(world, -1), src)
-            return out.to(device)
-        out = torch.empty(shape, dtype=local.dtype, device=device)
-        dst = out.view(-1).view(torch.uint8).view(world, -1)
-        n, rank = src.numel(), self.layout.rank
-        rows = self._host_rows(world, n, src.is_cuda)
-        rows[rank].copy_(src)
-        works = []
-        for peer in range(world):
-            if peer == rank:
-                continue
-            for tag, a in enumerate(range(0, n, _CHUNK_BYTES)):
-                b = min(n, a + _CHUNK_BYTES)
-                works.append(dist.isend(rows[rank, a:b], peer, tag=tag))
-                works.append(dist.irecv(rows[peer, a:b], peer, tag=tag))
-        for work in works:
-            work.wait()
-        dst.copy_(rows)
-        return out
-
-    def _host_rows(self, world: int, n: int, pinned: bool) -> torch.Tensor:
-        """A ``(world, n)`` byte view of the group's host buffer."""
-        if self._stage is None or self._stage.numel() < world * n:
-            self._stage = None
-            self._stage = torch.empty(world * n, dtype=torch.uint8,
-                                      pin_memory=pinned)
-        return self._stage[:world * n].view(world, n)
+        """This rank's ``(p / N, ...)`` rows -> every data rank's, ``(p,
+        ...)`` in worker order, on ``device`` (default ``local``'s).
+        Uncounted: the callers above count the wire."""
+        return self._exchange.gather_rows(local, device)
 
 
 class WorkerSum:

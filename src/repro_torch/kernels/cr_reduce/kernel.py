@@ -174,6 +174,10 @@ class TopkCrReduce:
         path)."""
         return "atomic" if int(self._scratch[0]) else "segment"
 
+    def release_scratch(self) -> None:
+        """Drop the last call's scratch, kept for :meth:`last_route`."""
+        self._scratch = None
+
 
 # triton.language, bound at the first launch (the kernel body below names
 # it as a module global, as Triton resolves names in the function's globals)

@@ -95,5 +95,10 @@ class TopkEf:
         self.launches += 1
         return vals, idx, new_err
 
+    def release_scratch(self) -> None:
+        """Free the kept zeroed scratch (``zeroed_words`` a row of the most
+        rows seen); the next launch allocates it again, zeroed."""
+        self._zeroed = _build.Tickets()
+
 
 topk_ef = TopkEf()

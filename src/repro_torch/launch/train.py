@@ -1,6 +1,5 @@
 """End-to-end trainer of the port (counterpart of ``repro.launch.train``,
-with its checkpointing and fault injection, without its tensor
-parallelism).
+with its checkpointing, fault injection and tensor parallelism).
 
     python -m repro_torch.launch.train --arch qwen3-1.7b --sync async \\
         --compressor topk --topk-ratio 0.0625 --tau-max 2 --workers 2 \\
@@ -42,6 +41,27 @@ refuses ``--ranks`` > 1 (its data-parallel form is ``--sync async
 
     python -m repro_torch.launch.train --device cpu --arch qwen3-1.7b-smoke \\
         --sync async --compressor topk --workers 2 --ranks 2 --steps 3
+
+``--model-shards m`` (default 1) lays the ranks out as a grid of ``R / m``
+data ranks by ``m`` model ranks (`repro_torch.launch.mesh`; m must divide
+R and R / m the workers): each rank holds its model shard of every leaf by
+the reference's spec (``param_specs(defs, {"model": m})``) and runs the
+forward and backward with Megatron's collectives over its model group
+(`repro_torch.models.actx`); compression and delivery run on its own rows
+and the payloads cross its data group only.  The counterpart of the
+reference's ``--devices D --model-shards m`` is ``--workers D/m --ranks D
+--model-shards m``.  Only the attention stacks without experts run it (the
+MoE, Mamba2 and RWKV6 stacks refuse ``m > 1`` before any rank starts), and
+the fused delivery stays fused.  ``--sync exact`` takes ``--ranks m
+--model-shards m`` (one data rank).  A checkpoint holds whole leaves, as
+the reference's ``--model-shards m`` run writes them, and resumes under
+any layout with the same ``m``; a fused async checkpoint of another ``m``
+(its ``acc`` rings are (cap, M, R) with M the model-sharded dim) is
+refused before any rank starts.
+
+    python -m repro_torch.launch.train --device cpu --arch qwen3-1.7b-smoke \\
+        --sync async --compressor topk --workers 2 --ranks 4 \\
+        --model-shards 2 --steps 3
 
 ``--device`` defaults to ``cuda``; without a card the trainer raises
 unless ``--device cpu`` is given — it never carries on on the CPU by
@@ -116,6 +136,9 @@ def _parse(argv=None):
     ap.add_argument("--ranks", type=int, default=1,
                     help="processes the workers are laid over, one "
                          "torch.distributed rank each (divides --workers)")
+    ap.add_argument("--model-shards", type=int, default=1,
+                    help="ranks a model group shards the model over "
+                         "(tensor parallelism; divides --ranks)")
     ap.add_argument("--dist-backend", default=None, choices=["gloo", "nccl"],
                     help="the ranks' backend (default: nccl on --device "
                          "cuda, gloo on the CPU)")
@@ -153,7 +176,8 @@ _STATE_MISMATCH = (
     "original flags or use a fresh --ckpt-dir")
 
 
-def main(argv=None, *, cfg=None, report=None) -> list[dict]:
+def main(argv=None, *, cfg=None, report=None,
+         compare_to=None) -> list[dict]:
     """Run the configured training; returns one metrics dict per step run
     (``step``, ``loss``, ``gap2_over_alpha2``, ``stale_gap2``,
     ``mean_tau``, ``nonfinite``, ``step_s``, ``wire_bytes``; a metric the
@@ -163,39 +187,95 @@ def main(argv=None, *, cfg=None, report=None) -> list[dict]:
     (vision, audio) then embeds its tokens, as the reference's launcher
     does.  A ``report`` dict receives ``"ranks"``, one dict a rank (its
     kernel launches, peak device memory, step seconds and per-step wire
-    bytes by collective, and the seconds its share of the digests took)
-    and ``"digests"``, the SHA-256 of each leaf of the final ``(params,
-    opt_state, state)`` as a one-process checkpoint of it would hold it
-    (`repro_torch.checkpoint.leaf_digests`)."""
+    bytes by collective, and the seconds its set-up before the first
+    step, its share of the comparison and of the digests took; under
+    ``--ranks``, also from the parent's spawn to the rank's start and its
+    rendezvous) and ``"digests"``, the SHA-256 of each leaf of the final
+    ``(params, opt_state, state)`` as a one-process checkpoint of it would
+    hold it (`repro_torch.checkpoint.leaf_digests`).  ``compare_to`` (the
+    whole param leaves of another run, in leaf order) makes the report's
+    ``"leaf_max_abs"`` the largest absolute difference of each final
+    param leaf, gathered whole, from its counterpart, by path (rank 0
+    compares; the leaves reach it through ``torch.multiprocessing``,
+    CUDA ones by IPC handle), in place of the digests (``None``)."""
     args = _parse(argv)
-    if args.ranks > 1:
-        return _run_ranks(args, cfg, report)
+    if args.ranks > 1 or args.model_shards > 1:
+        return _run_ranks(args, cfg, report, compare_to)
     from repro_torch.launch.mesh import RankLayout
     rep = None if report is None else {}
-    history = _train(args, cfg, RankLayout(), rep)
+    history = _train(args, cfg, RankLayout(), rep, compare_to)
     if report is not None:
         report["digests"] = rep.pop("digests")
+        report["leaf_max_abs"] = rep.pop("leaf_max_abs")
         report["ranks"] = [rep]
     return history
 
 
-def _run_ranks(args, cfg, report):
-    """The parent of a ``--ranks`` run: check the layout, build the CUDA
-    kernels once, spawn one process a rank, collect rank 0's history and
-    every rank's report, and take the world down if a rank dies."""
+def _arch(args, cfg):
+    """The config to train: ``cfg`` or ``--arch``, cut to ``--n-layers``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = cfg if cfg is not None else get_config(args.arch)
+    if args.n_layers:
+        if not 0 < args.n_layers <= cfg.n_layers:
+            raise SystemExit(f"--n-layers {args.n_layers}: {cfg.name} has "
+                             f"{cfg.n_layers} layers")
+        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
+    return cfg
+
+
+def _check_resume(args, cfg) -> None:
+    """Raise ``ValueError`` when ``--ckpt-dir``'s newest checkpoint cannot
+    be restored into this configuration's whole layout, which is built on
+    the ``meta`` device (no storage) to compare the structures."""
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.checkpoint import check_checkpoint, latest_step
+    from repro_torch.dist.workers import WorkerGroup
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.params import param_specs
+
+    last = latest_step(args.ckpt_dir) if args.ckpt_dir else None
+    if last is None:
+        return
+    defs = TF.model_defs(cfg)
+    specs = param_specs(defs, {"model": args.model_shards})
+    params = T.tree_map(lambda d: torch.empty(d.shape, device="meta"), defs)
+    opt_state, state, _ = _build(args, cfg, WorkerGroup(args.workers),
+                                 params, specs)
+    try:
+        check_checkpoint(args.ckpt_dir, last, (params, opt_state, state))
+    except ValueError as e:
+        raise ValueError(f"{_STATE_MISMATCH} ({e})") from e
+
+
+def _run_ranks(args, cfg, report, compare_to):
+    """The parent of a ``--ranks`` run: check the layout, the family and
+    the checkpoint to resume, build the CUDA kernels once, spawn one
+    process a rank, collect rank 0's history and every rank's report, and
+    take the world down if a rank dies."""
     import multiprocessing
 
     import torch
 
     from repro_torch.launch.mesh import check_layout, default_backend
+    from repro_torch.models.transformer import check_tensor_parallel
 
     device_type = torch.device(args.device).type
     backend = args.dist_backend or default_backend(device_type)
     resolve_device(args.device)
-    check_layout(args.workers, args.ranks, backend, device_type)
-    if args.sync == "exact":
+    check_layout(args.workers, args.ranks, backend, device_type,
+                 args.model_shards)
+    if args.sync == "exact" and args.ranks != args.model_shards:
         raise SystemExit("--sync exact is the whole-batch step of one "
-                         "process; over ranks use --sync async --tau-max 0")
+                         "data rank (--ranks m --model-shards m); over data "
+                         "ranks use --sync async --tau-max 0")
+    arch = _arch(args, cfg)
+    check_tensor_parallel(arch, args.model_shards)
+    _check_resume(args, arch)
     if device_type == "cuda":
         # before any rank starts, so that two ranks never race nvcc
         from repro_torch.kernels import _build
@@ -205,8 +285,9 @@ def _run_ranks(args, cfg, report):
     results = ctx.Queue()
     procs = [ctx.Process(target=_rank_main, name=f"rank {r}", daemon=True,
                          args=(r, args, backend, os.path.join(tmp, "store"),
-                               cfg, report is not None, results,
-                               os.getpid()))
+                               cfg, report is not None,
+                               _compare_part(compare_to, r), results,
+                               os.getpid(), time.time()))
              for r in range(args.ranks)]
     got = {}
     try:
@@ -243,8 +324,17 @@ def _run_ranks(args, cfg, report):
     if report is not None:
         ranks = [got[r]["report"] for r in range(args.ranks)]
         report["digests"] = ranks[0].pop("digests")
+        report["leaf_max_abs"] = ranks[0].pop("leaf_max_abs")
         report["ranks"] = ranks
     return got[0]["history"]
+
+
+def _compare_part(compare_to, rank: int):
+    """Rank ``rank``'s part of ``compare_to``: rank 0 compares with the
+    leaves, the others only join the gathers (a ``None`` a leaf)."""
+    if compare_to is None or rank == 0:
+        return compare_to
+    return [None] * len(compare_to)
 
 
 def _exit_with_parent(parent_pid: int) -> None:
@@ -256,51 +346,109 @@ def _exit_with_parent(parent_pid: int) -> None:
     threading.Thread(target=watch, daemon=True).start()
 
 
-def _rank_main(rank, args, backend, store_path, cfg, want_report, results,
-               parent_pid):
-    """One rank of a ``--ranks`` run (a spawned process)."""
+def _rank_main(rank, args, backend, store_path, cfg, want_report,
+               compare_to, results, parent_pid, t_spawn):
+    """One rank of a ``--ranks`` run (a spawned process; ``t_spawn``: the
+    host clock when the parent started the ranks)."""
     from repro_torch.launch.mesh import close, make_host_mesh
+    from repro_torch.models import actx
 
+    spawn_s = time.time() - t_spawn     # the interpreter and its imports
     _exit_with_parent(parent_pid)
     if rank:
         sys.stdout = open(os.devnull, "w")
+    t0 = time.perf_counter()
     layout = make_host_mesh(backend=backend, world=args.ranks, rank=rank,
-                            store_path=store_path)
+                            store_path=store_path, model=args.model_shards)
+    mesh_s = time.perf_counter() - t0
     try:
         rep = {} if want_report else None
-        history = _train(args, cfg, layout, rep)
+        history = _train(args, cfg, layout, rep, compare_to)
+        if compare_to is not None:
+            # drop the parent's leaves (CUDA ones shared by IPC handle) now:
+            # the parent frees them once every rank holding one lets go
+            compare_to.clear()
+        if rep is not None:
+            rep.update(spawn_s=spawn_s, mesh_s=mesh_s)
         results.put((rank, {"history": history if rank == 0 else None,
                             "report": rep}))
     finally:
+        actx.install(None)
         close(layout)
 
 
-def _train(args, cfg, layout, report) -> list[dict]:
-    """The training loop of one process: all the workers (one rank), or
-    rank ``layout.rank``'s."""
-    import dataclasses
-
-    import numpy as np
-    import torch
-
+def _build(args, cfg, group, params, specs, injector=None):
+    """The optimizer state, the sync or async state and the step function
+    ``run(params, opt_state, state, batch)`` of ``--sync`` over ``group``
+    (``params`` and ``specs``: this rank's)."""
     from repro_torch import tree as T
-    from repro_torch.checkpoint import (latest_step, leaf_digests,
-                                        load_checkpoint, save_checkpoint)
-    from repro_torch.configs import get_config
     from repro_torch.core.scheduler import SyncConfig
-    from repro_torch.data.pipeline import SyntheticLMDataset, to_device
-    from repro_torch.dist import sharding as SH
     from repro_torch.dist.async_engine import (AsyncConfig,
                                                init_async_state,
                                                make_async_train_step)
     from repro_torch.dist.train import (init_dist_sync_state,
                                         make_elastic_train_step,
                                         make_train_step)
+    from repro_torch.optim import constant, momentum
+
+    guard = injector is not None and injector.has_poison
+    opt = momentum(constant(args.lr), 0.9)
+    opt_state = opt.init(T.leaves(params))
+    if args.sync == "exact":
+        exact = make_train_step(cfg, opt, skip_nonfinite=guard, specs=specs)
+
+        def run(params, opt_state, state, batch):
+            params, opt_state, m = exact(params, opt_state, batch)
+            return params, opt_state, state, m
+        # the reference's exact state: a step counter the step never moves
+        return opt_state, {"step": 0}, run
+    if args.sync != "async":
+        scfg = SyncConfig(strategy=args.sync, topk_ratio=args.topk_ratio,
+                          beta=args.beta, budget_b=args.budget_b,
+                          gate="norm")
+        state = init_dist_sync_state(scfg, group, params)
+        return opt_state, state, make_elastic_train_step(cfg, opt, scfg,
+                                                         group, specs)
+    # the horizon is decoupled from --steps (up to 1024), so a resume with
+    # a larger --steps reuses the checkpointed tau table; the crash/rejoin
+    # schedules place their outages at horizon fractions, so theirs follows
+    # the run (the resume check holds it)
+    horizon = max(args.steps, 1) \
+        if args.async_schedule in ("crash", "rejoin") \
+        else max(args.steps, 1024)
+    acfg = AsyncConfig(
+        tau_max=args.tau_max, schedule=args.async_schedule,
+        compressor=args.compressor, error_feedback=args.ef,
+        topk_ratio=args.topk_ratio, horizon=horizon, seed=args.seed,
+        crash_subst=args.crash_subst, skip_nonfinite=guard,
+        overlap=args.overlap)
+    state = init_async_state(acfg, group, params, specs)
+    if injector is not None and injector.plan.has_tau_events:
+        # crash/rejoin/delay/drop faults rewrite the host tau table; a
+        # resume restores the same rewritten table from the checkpoint
+        state["taus"] = injector.plan.apply_to_taus(state["taus"],
+                                                    args.tau_max)
+    return opt_state, state, make_async_train_step(cfg, opt, acfg, group,
+                                                   specs)
+
+
+def _train(args, cfg, layout, report, compare_to=None) -> list[dict]:
+    """The training loop of one process: all the workers (one rank), or
+    rank ``layout.rank``'s."""
+    t_start = time.perf_counter()
+    import numpy as np
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.checkpoint import (latest_step, leaf_digests,
+                                        load_checkpoint, save_checkpoint)
+    from repro_torch.data.pipeline import SyntheticLMDataset, to_device
+    from repro_torch.dist import sharding as SH
     from repro_torch.dist.workers import WorkerGroup
     from repro_torch.launch.mesh import rank_device
+    from repro_torch.models import actx
     from repro_torch.models import transformer as TF
     from repro_torch.models.params import init_params, param_specs
-    from repro_torch.optim import constant, momentum
 
     if layout.world == 1:
         device = resolve_device(args.device)
@@ -316,12 +464,7 @@ def _train(args, cfg, layout, report) -> list[dict]:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
             False
-    cfg = cfg if cfg is not None else get_config(args.arch)
-    if args.n_layers:
-        if not 0 < args.n_layers <= cfg.n_layers:
-            raise SystemExit(f"--n-layers {args.n_layers}: {cfg.name} has "
-                             f"{cfg.n_layers} layers")
-        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
+    cfg = _arch(args, cfg)
     injector = None
     if args.fault_plan:
         from repro_torch.faults import FaultPlan, TrainFaultInjector
@@ -333,50 +476,27 @@ def _train(args, cfg, layout, report) -> list[dict]:
     if guard and args.sync not in ("exact", "async"):
         raise SystemExit("--fault-plan with grad_poison events needs "
                          "--sync exact or async (the skip-step guard)")
+    m = layout.model
+    TF.check_tensor_parallel(cfg, m)
+    if m > 1:
+        actx.install(actx.ModelGroup(layout, group._count))
     defs = TF.model_defs(cfg)
-    specs = param_specs(defs)
+    specs = param_specs(defs, {"model": m})
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = init_params(defs, gen, device)
-    opt = momentum(constant(args.lr), 0.9)
-    opt_state = opt.init(T.leaves(params))
+    params = init_params(defs, gen, device, specs=specs,
+                         rank=layout.model_rank, size=m)
+    opt_state, state, run = _build(args, cfg, group, params, specs,
+                                   injector)
+    opt_specs = SH.opt_state_specs(opt_state, specs)
     data = SyntheticLMDataset(cfg.vocab_size, args.seq, args.batch,
                               seed=args.seed)
 
-    if args.sync == "exact":
-        exact = make_train_step(cfg, opt, skip_nonfinite=guard)
-
-        def run(params, opt_state, state, batch):
-            params, opt_state, m = exact(params, opt_state, batch)
-            return params, opt_state, state, m
-        # the reference's exact state: a step counter the step never moves
-        state = {"step": 0}
-    elif args.sync != "async":
-        scfg = SyncConfig(strategy=args.sync, topk_ratio=args.topk_ratio,
-                          beta=args.beta, budget_b=args.budget_b,
-                          gate="norm")
-        state = init_dist_sync_state(scfg, group, params)
-        run = make_elastic_train_step(cfg, opt, scfg, group, specs)
-    else:
-        # the horizon is decoupled from --steps (up to 1024), so a resume
-        # with a larger --steps reuses the checkpointed tau table; the
-        # crash/rejoin schedules place their outages at horizon fractions,
-        # so theirs follows the run (the resume check holds it)
-        horizon = max(args.steps, 1) \
-            if args.async_schedule in ("crash", "rejoin") \
-            else max(args.steps, 1024)
-        acfg = AsyncConfig(
-            tau_max=args.tau_max, schedule=args.async_schedule,
-            compressor=args.compressor, error_feedback=args.ef,
-            topk_ratio=args.topk_ratio, horizon=horizon, seed=args.seed,
-            crash_subst=args.crash_subst, skip_nonfinite=guard,
-            overlap=args.overlap)
-        state = init_async_state(acfg, group, params, specs)
-        if injector is not None and injector.plan.has_tau_events:
-            # crash/rejoin/delay/drop faults rewrite the host tau table; a
-            # resume restores the same rewritten table from the checkpoint
-            state["taus"] = injector.plan.apply_to_taus(state["taus"],
-                                                        args.tau_max)
-        run = make_async_train_step(cfg, opt, acfg, group, specs)
+    def whole(params, opt_state, state):
+        # the trees in the one-process layout: per-worker and model-sharded
+        # leaves gathered (or scattered) one leaf at a time
+        return (SH.shard_view(params, specs),
+                SH.shard_view(opt_state, opt_specs),
+                SH.gather_state(state, group, specs))
 
     step_idx = 0
     if args.ckpt_dir:
@@ -384,13 +504,14 @@ def _train(args, cfg, layout, report) -> list[dict]:
         if last is not None:
             t0 = time.perf_counter()
             try:
-                # every rank reads the file and takes its workers' rows
-                params, opt_state, whole = load_checkpoint(
+                # every rank reads the file and takes its part of each leaf
+                params, opt_state, restored = load_checkpoint(
                     args.ckpt_dir, last,
-                    like=(params, opt_state, SH.gather_state(state, group)))
+                    like=whole(params, opt_state, state))
             except ValueError as e:
                 raise ValueError(f"{_STATE_MISMATCH} ({e})") from e
-            state = SH.scatter_state(whole, state)
+            params, opt_state = SH.local_tree((params, opt_state))
+            state = SH.scatter_state(restored, state)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             load_s = time.perf_counter() - t0
@@ -405,6 +526,7 @@ def _train(args, cfg, layout, report) -> list[dict]:
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
     history, wire = [], []
+    setup_s = time.perf_counter() - t_start
     for t in range(step_idx, args.steps):
         batch = to_device(data.batch(t), device)
         if guard:
@@ -445,10 +567,8 @@ def _train(args, cfg, layout, report) -> list[dict]:
             try:
                 if injector is not None:
                     injector.check_ckpt_io(t + 1)
-                # per-worker leaves gathered into the one-process layout
                 path = save_checkpoint(
-                    args.ckpt_dir, t + 1,
-                    (params, opt_state, SH.gather_state(state, group)),
+                    args.ckpt_dir, t + 1, whole(params, opt_state, state),
                     write=writer)
                 if path is not None:
                     print(f"ckpt: saved step {t + 1} in "
@@ -470,10 +590,32 @@ def _train(args, cfg, layout, report) -> list[dict]:
         losses = finite if finite else losses
     if history:
         print(f"final loss {np.mean(losses[-10:]):.4f}", flush=True)
+    t0 = time.perf_counter()
+    leaf_max_abs = None
+    if compare_to is not None:
+        # every rank joins each leaf's gather; rank 0 compares it whole
+        view = SH.shard_view(params, specs)
+        if len(compare_to) != len(T.leaves(view)):
+            raise ValueError(f"compare_to holds {len(compare_to)} leaves, "
+                             f"the params {len(T.leaves(view))}")
+        leaf_max_abs = {}
+        for path, leaf, want in zip(T.paths(view), T.leaves(view),
+                                    compare_to):
+            if want is not None and tuple(leaf.shape) != tuple(want.shape):
+                raise ValueError(f"{path}: {tuple(leaf.shape)} against "
+                                 f"{tuple(want.shape)} to compare to")
+            got = leaf.gather() if isinstance(leaf, SH.WorkerRows) \
+                else leaf.detach()
+            if want is not None:
+                leaf_max_abs[path] = float(
+                    (got.to(want.device) - want).abs().max())
+            del got
+    compare_s = time.perf_counter() - t0
     if report is not None:
         t0 = time.perf_counter()
-        digests = leaf_digests(
-            (params, opt_state, SH.gather_state(state, group)), write=writer)
+        # a comparison holds the params whole: no digests beside it
+        digests = None if compare_to is not None else leaf_digests(
+            whole(params, opt_state, state), write=writer)
         report.update(
             rank=layout.rank, device=str(device),
             launches={k.name: k.launches - launched[k.name]
@@ -481,7 +623,9 @@ def _train(args, cfg, layout, report) -> list[dict]:
             max_memory_allocated=(torch.cuda.max_memory_allocated(device)
                                   if device.type == "cuda" else None),
             step_s=[r["step_s"] for r in history], wire=wire,
-            digests=digests, digest_s=time.perf_counter() - t0)
+            digests=digests, digest_s=time.perf_counter() - t0,
+            leaf_max_abs=leaf_max_abs, setup_s=setup_s,
+            compare_s=compare_s)
     return history
 
 

@@ -9,12 +9,18 @@ scores, the attention output and the LM head), the operands are widened to
 f32 first — a product of two bf16 values is exact in f32, so this is bf16
 inputs with f32 accumulation. The reference attention is plain jnp, not
 Pallas, so it is plain torch here too.
+
+Under a `repro_torch.models.actx` model group the weights are this rank's
+shards: the attention runs its heads, the MLP its ``ff`` slice, and the
+row-parallel ``wo`` and ``w_down`` products are summed over the group
+(``reduce_out``); without one that sum is the identity.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import actx
 from repro_torch.models.params import ParamDef
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -165,7 +171,9 @@ def attention_block(params, cfg, x, positions, *, window: int,
             q5, k_cache.to(dt), v_cache.to(dt), positions, k_pos, window,
             hd ** -0.5).reshape(b, 1, cfg.n_heads, hd).to(dt)
         kv = kv_cache
-    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dt)), kv
+    # row-parallel under a model group: the heads' partial sums, summed
+    return actx.reduce_out(
+        torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dt))), kv
 
 
 def mlp_defs(d: int, ff: int) -> dict:
@@ -177,7 +185,9 @@ def mlp_defs(d: int, ff: int) -> dict:
 
 
 def mlp_block(params, x):
+    """The gated MLP; under a model group ``ff`` is this rank's shard and
+    the row-parallel ``w_down``'s partial sums are summed."""
     dt = x.dtype
     gate = F.silu(x @ params["w_gate"].to(dt))
     up = x @ params["w_up"].to(dt)
-    return (gate * up) @ params["w_down"].to(dt)
+    return actx.reduce_out((gate * up) @ params["w_down"].to(dt))

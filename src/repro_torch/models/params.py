@@ -7,8 +7,11 @@ compressors act per leaf: the top-k of ``w_gate`` is taken over all its
 layers at once, and splitting the leaf would change which entries win.
 
 Spec resolution maps logical axes to the ``model`` mesh axis exactly as the
-reference does; on the in-process data-parallel port the model axis has
-size 1, so every spec is all-``None``.
+reference does.  At a model axis of 1 every spec is all-``None``; under
+``--model-shards m`` a rank holds model rank ``j``'s slice of each leaf its
+spec shards (`repro_torch.dist.sharding.shard_leaf`), and
+:func:`init_params` / :func:`params_from_jax` draw or read each whole leaf
+and keep that slice, so a run's params do not depend on the layout.
 
 Serving holds every matrix in the compute dtype
 (:func:`init_serving_params`): each use of a matrix casts it to bf16 first,
@@ -87,13 +90,26 @@ def param_specs(defs, axis_sizes: dict | None = None):
     return T.tree_map(lambda d: resolve_spec(d, axis_sizes or {}), defs)
 
 
-def init_params(defs, gen: torch.Generator, device=None):
+def init_params(defs, gen: torch.Generator, device=None, *, specs=None,
+                rank: int = 0, size: int = 1):
     """Materialize a ParamDef tree (float32) from one generator, leaves
     drawn in leaf order.  For standalone runs: the reference draws from
     ``jax.random``, whose numbers torch cannot reproduce, so parity tests
-    carry the reference's params over with :func:`params_from_jax`."""
+    carry the reference's params over with :func:`params_from_jax`.  With
+    ``specs`` and ``size > 1`` each leaf is drawn whole, one at a time, and
+    model rank ``rank``'s slice of it kept."""
     device = device if device is not None else gen.device
-    return T.tree_map(lambda d: d.materialize(gen, device), defs)
+    if specs is None or size == 1:
+        return T.tree_map(lambda d: d.materialize(gen, device), defs)
+    return T.tree_map(
+        lambda d, sp: _keep_slice(d.materialize(gen, device), sp, rank, size),
+        defs, specs)
+
+
+def _keep_slice(x: torch.Tensor, spec, rank: int, size: int):
+    from repro_torch.dist.sharding import shard_leaf
+    part = shard_leaf(x, spec, rank, size)
+    return part if part is x else part.clone()
 
 
 def _is_matrix(d: ParamDef) -> bool:
@@ -129,10 +145,18 @@ def count_params(defs) -> int:
     return sum(math.prod(d.shape) for d in T.leaves(defs))
 
 
-def params_from_jax(tree_of_numpy, device="cpu"):
+def params_from_jax(tree_of_numpy, device="cpu", *, specs=None,
+                    rank: int = 0, size: int = 1):
     """The reference's parameters (a nested dict of numpy arrays, e.g.
-    ``jax.tree.map(np.asarray, params)``) as float32 torch tensors."""
-    return T.tree_map(
-        lambda a: torch.as_tensor(np.array(a, dtype=np.float32)).to(device),
-        tree_of_numpy)
+    ``jax.tree.map(np.asarray, params)``) as float32 torch tensors; with
+    ``specs`` and ``size > 1``, model rank ``rank``'s slice of each."""
+    def one(a, spec=None):
+        x = torch.as_tensor(np.array(a, dtype=np.float32))
+        if spec is not None:
+            x = _keep_slice(x, spec, rank, size)
+        return x.to(device)
+
+    if specs is None or size == 1:
+        return T.tree_map(one, tree_of_numpy)
+    return T.tree_map(one, tree_of_numpy, specs)
 

@@ -26,6 +26,20 @@ about 0.8 GB a layer of full-width rwkv6-1.6b at 2 sequences of 256, so
 the layer's activations are recomputed in backward instead of kept for
 all 24 layers.  The slices are taken outside the checkpointed function,
 so each sink row is written once, by the recomputed graph's backward.
+
+Tensor parallelism (``--model-shards m``, the attention stacks without
+experts): under a `repro_torch.models.actx` model group each rank holds
+its model shard of every leaf, by the reference's spec
+(:func:`tp_specs`), and runs the Megatron layout.  The attention runs the
+rank's ``H / m`` query heads and ``K / m`` kv heads, ``wo`` row-parallel;
+the MLP is column-parallel on ``ff`` and row-parallel on ``w_down``; the
+embedding is a vocab-parallel lookup and the LM head gives logits sharded
+on the vocab.  A leaf sharded on a dim its layer does not split (the norm
+scales on ``embed``; ``embed`` and ``lm_head`` on ``embed`` when the vocab
+does not divide ``m``) is gathered whole; ``q_norm`` and ``k_norm``, which
+no spec shards, see head-local activations only, so their gradients are
+summed over the group.  The MoE, Mamba2 and RWKV6 stacks refuse ``m > 1``
+(:func:`check_tensor_parallel`).
 """
 from __future__ import annotations
 
@@ -37,13 +51,14 @@ from repro_torch.configs.base import (BLOCK_ATTN, BLOCK_MAMBA2, BLOCK_RWKV6,
                                       FRONTEND_AUDIO, FRONTEND_VISION,
                                       ArchConfig)
 from repro_torch import tree as T
+from repro_torch.models import actx
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv6 as R6
 from repro_torch.models.layers import (COMPUTE_DTYPE, attention_block,
                                        attention_defs, mlp_block, mlp_defs,
                                        rmsnorm, rmsnorm_def)
-from repro_torch.models.params import ParamDef, stack_defs
+from repro_torch.models.params import ParamDef, param_specs, stack_defs
 
 
 def _check_supported(cfg: ArchConfig) -> None:
@@ -86,6 +101,79 @@ def model_defs(cfg: ArchConfig) -> dict:
     return defs
 
 
+# the per-layer dim each split leaf of the attention stack must be sharded
+# on (the reference's attn_q / attn_kv / ffn_hidden points), and the
+# replicated leaves that only head-local activations use
+_SPLIT = {("attn", "wq"): 1, ("attn", "wk"): 1, ("attn", "wv"): 1,
+          ("attn", "wo"): 0, ("mlp", "w_gate"): 1, ("mlp", "w_up"): 1,
+          ("mlp", "w_down"): 0}
+_HEAD_LOCAL = {("attn", "q_norm"), ("attn", "k_norm")}
+
+
+def tp_specs(cfg: ArchConfig, m: int):
+    """The reference's param specs of ``cfg`` at a model axis of ``m``."""
+    return param_specs(model_defs(cfg), {"model": m})
+
+
+def check_tensor_parallel(cfg: ArchConfig, m: int) -> None:
+    """Raise ``ValueError`` unless ``cfg`` runs over ``m`` model shards."""
+    if m <= 1:
+        return
+    family = ("MoE" if cfg.is_moe else "Mamba2" if cfg.block_type ==
+              BLOCK_MAMBA2 else "RWKV6" if cfg.block_type == BLOCK_RWKV6
+              else None)
+    if family is not None:
+        raise ValueError(f"{cfg.name}: --model-shards {m} is not ported for "
+                         f"the {family} stack (only the attention stacks "
+                         "without experts run tensor-parallel)")
+    layer = tp_specs(cfg, m)["layers"]
+    for (block, name), dim in _SPLIT.items():
+        if actx.model_dim(layer[block][name]) != dim + 1:
+            raise ValueError(
+                f"{cfg.name}: --model-shards {m} must divide n_heads "
+                f"{cfg.n_heads}, n_kv_heads {cfg.n_kv_heads} and d_ff "
+                f"{cfg.d_ff}")
+
+
+def _tp_layer(lp: dict, specs: dict) -> dict:
+    """One layer's leaves as its blocks use them under a model group: the
+    split leaves as they are, the other sharded leaves gathered whole, the
+    head-local replicated leaves behind ``copy_in``."""
+    flat, td = T.flatten(lp)
+    out = []
+    for path, a, spec in zip(T.paths(lp), flat, T.leaves(specs)):
+        key, dim = tuple(path.split("/")), actx.model_dim(spec)
+        if key in _SPLIT:
+            out.append(a)
+        elif dim is not None:
+            out.append(actx.gather_leaf(a, dim - 1))   # less the layers dim
+        elif key in _HEAD_LOCAL:
+            out.append(actx.copy_in(a))
+        else:
+            out.append(a)
+    return T.unflatten(td, out)
+
+
+def _head_dim(cfg: ArchConfig, m: int):
+    """Under a model group: the dim ``embed`` (tied) or ``lm_head`` is
+    sharded on, and whether that splits the vocab."""
+    specs = tp_specs(cfg, m)
+    if cfg.tie_embeddings:
+        dim = actx.model_dim(specs["embed"])
+        return dim, dim == 0
+    dim = actx.model_dim(specs["lm_head"])
+    return dim, dim == 1
+
+
+def logits_vocab_start(cfg: ArchConfig) -> int | None:
+    """The first vocab id of this rank's logits when :func:`lm_logits`
+    gives them sharded on the vocab; ``None`` when they are whole."""
+    ctx = actx.current()
+    if ctx is None or not _head_dim(cfg, ctx.size)[1]:
+        return None
+    return ctx.rank * (cfg.vocab_size // ctx.size)
+
+
 def embed_input(cfg: ArchConfig, params, batch: dict) -> torch.Tensor:
     """Token or frontend embedding -> (B, S, d) in the compute dtype.
 
@@ -96,7 +184,20 @@ def embed_input(cfg: ArchConfig, params, batch: dict) -> torch.Tensor:
     only."""
     if cfg.frontend == FRONTEND_AUDIO and "frame_embeds" in batch:
         return batch["frame_embeds"].to(COMPUTE_DTYPE)
-    x = params["embed"][batch["tokens"].long()].to(COMPUTE_DTYPE)
+    ctx = actx.current()
+    if ctx is None:
+        x = params["embed"][batch["tokens"].long()].to(COMPUTE_DTYPE)
+    elif actx.model_dim(tp_specs(cfg, ctx.size)["embed"]) == 0:
+        # vocab-parallel: this rank's rows, zero elsewhere, summed
+        emb = params["embed"]
+        v = emb.shape[0]
+        local = batch["tokens"].long() - ctx.rank * v
+        inside = (local >= 0) & (local < v)
+        rows = emb[torch.where(inside, local, torch.zeros_like(local))]
+        x = actx.reduce_out((rows * inside[..., None]).to(COMPUTE_DTYPE))
+    else:
+        emb = actx.gather_leaf(params["embed"], 1)
+        x = emb[batch["tokens"].long()].to(COMPUTE_DTYPE)
     if cfg.frontend == FRONTEND_VISION and "patch_embeds" in batch:
         p = batch["patch_embeds"].shape[1]
         x = torch.cat([batch["patch_embeds"].to(COMPUTE_DTYPE), x[:, p:]],
@@ -107,8 +208,23 @@ def embed_input(cfg: ArchConfig, params, batch: dict) -> torch.Tensor:
 def lm_logits(cfg: ArchConfig, params, x: torch.Tensor) -> torch.Tensor:
     """Final norm + LM head (tied to the embedding when configured); bf16
     operands, f32 logits."""
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    ctx = actx.current()
+    if ctx is None:
+        x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        head = params["embed"].t() if cfg.tie_embeddings \
+            else params["lm_head"]
+    else:
+        specs = tp_specs(cfg, ctx.size)
+        x = rmsnorm(x, actx.gather_leaf(
+            params["final_norm"], actx.model_dim(specs["final_norm"])),
+            cfg.norm_eps)
+        dim, split = _head_dim(cfg, ctx.size)
+        leaf = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+        if split:
+            x = actx.copy_in(x)
+        else:
+            leaf = actx.gather_leaf(leaf, dim)
+        head = leaf.t() if cfg.tie_embeddings else leaf
     return torch.einsum("bsd,dv->bsv", x.float(),
                         head.to(x.dtype).float())
 
@@ -148,13 +264,18 @@ def attn_stack(cfg: ArchConfig, stacked, x, positions, sinks=None, *,
     windows = cfg.layer_window_sizes()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     kvs = kv_caches
+    ctx = actx.current()
+    specs = tp_specs(cfg, ctx.size)["layers"] if ctx is not None else None
     for i, lp in enumerate(_layer_slices(stacked, cfg.n_layers, sinks)):
+        if ctx is not None:
+            lp = _tp_layer(lp, specs)
         cache = None if kv_caches is None else (kv_caches[0][i],
                                                 kv_caches[1][i])
-        h, kv = attention_block(lp["attn"], cfg,
-                                rmsnorm(x, lp["ln_attn"], cfg.norm_eps),
-                                positions, window=windows[i], kv_cache=cache,
-                                cache_index=cache_index)
+        h, kv = attention_block(
+            lp["attn"], cfg,
+            actx.copy_in(rmsnorm(x, lp["ln_attn"], cfg.norm_eps)),
+            positions, window=windows[i], kv_cache=cache,
+            cache_index=cache_index)
         if collect_kv:
             if kvs is None:
                 kvs = tuple(torch.empty((cfg.n_layers, *a.shape),
@@ -168,7 +289,7 @@ def attn_stack(cfg: ArchConfig, stacked, x, positions, sinks=None, *,
             out, a = MOE.moe_block(lp["moe"], cfg, y)
             aux = aux + a
         else:
-            out = mlp_block(lp["mlp"], y)
+            out = mlp_block(lp["mlp"], actx.copy_in(y))
         x = x + out
     return x, aux, kvs
 
@@ -255,7 +376,12 @@ def ssm_stack(cfg: ArchConfig, params, x, positions, sinks=None, *,
 def forward(cfg: ArchConfig, params, batch: dict, layer_sinks=None):
     """Training forward: returns (logits (B, S, V) f32, aux_loss).
     ``layer_sinks`` (a tree like ``params["layers"]``) receives the layer
-    leaves' gradients on backward (see :class:`_LayerSlice`)."""
+    leaves' gradients on backward (see :class:`_LayerSlice`).  Under a
+    model group the logits are this rank's vocab shard when
+    :func:`logits_vocab_start` says so."""
+    ctx = actx.current()
+    if ctx is not None:
+        check_tensor_parallel(cfg, ctx.size)
     x = embed_input(cfg, params, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     if cfg.block_type != BLOCK_ATTN:
