@@ -211,11 +211,14 @@ Phases (any failure exits non-zero):
     2 ``--sync topk_ef`` steps (26 ``topk_ef`` and 26 ``topk_cr_reduce`` a
     rank); before each, the in-process oracle (``--workers 2``, 104 + 52 and
     52 + 26 launches), whose losses the ranks' equal bitwise, and whose
-    SHA-256 per leaf of the final params, optimizer state and sync state
-    equals the one rank 0 hands back with every rank's rows gathered; each
-    rank's peak memory, step wall and collective bytes a step logged, the
-    summed peak under 0.90 of the card; ``--ranks 2`` with ``nccl`` (named
-    or by default) on the one card raises before any step;
+    final params, optimizer state and sync state stay on the card, shared
+    with rank 0 by IPC handle (``repro_torch.launch.train.main(...,
+    compare_to=...)``): every final leaf of the three that rank 0 gathers
+    equals the oracle's bitwise (largest difference 0); each rank's peak
+    memory, step wall and collective bytes
+    a step logged, the summed peak under 0.90 of the card; ``--ranks 2``
+    with ``nccl`` (named or by default) on the one card raises before any
+    step;
 37. tensor parallelism (``--model-shards 2``): first K1, K2 and K4
     against their plain versions, bitwise, at the seven (M / 2, R) row
     geometries a rank of full-width qwen3-1.7b at ``TP_LAYERS`` layers
@@ -239,16 +242,43 @@ Phases (any failure exits non-zero):
     order); each rank's peak memory,
     step wall and bytes by collective (the data group's ``all_gather``
     and ``psum``, the model group's ``model_psum`` and
-    ``model_all_gather``) logged, the summed peak under 0.90 of the card.
+    ``model_all_gather``) logged, the summed peak under 0.90 of the card;
+38. tensor parallelism for the MoE, Mamba2 and RWKV6 stacks: first K1, K2
+    and K4 against their plain versions, bitwise, at every (M / 2, R) row
+    geometry a rank of this phase's three configs gives them that phase
+    37 did not time (24), and K10 at a rank's heads in zamba2-7b training
+    (``FAMILY_K10``: 32 of 64 heads) within phase 16's limits, each timed
+    with CUDA events over 5 calls beside its bound and ``torch.topk`` or
+    ``index_put_``; then one f32 forward and backward of each of the three
+    at full width, cut to one layer, over two model ranks (spawned here,
+    gloo on cuda:0) against one process: the loss within
+    ``FAMILY_GRAD_LOSS_RTOL`` and every gradient leaf, gathered whole by
+    rank 0, within ``FAMILY_GRAD_RTOL`` relative (no top-k pick to flip:
+    the partial sums only add in another order); then, each at full width through
+    ``repro_torch.launch.train.main`` with 2 workers and ``--model-shards
+    2 --dist-backend gloo`` on cuda:0 (``FAMILY_TP``): moonshot-v1-16b-a3b
+    cut to 1 of 48 layers on ``--ranks 2`` (one data rank of both
+    workers), 4 async top-k steps at tau_max 1 and 2 ``topk_ef`` steps;
+    zamba2-7b cut to 3 of 81 layers (the shared block once) and rwkv6-1.6b
+    cut to 6 of 24 on ``--ranks 4`` (2 data x 2 model), 4 async top-k
+    steps at tau_max 2; before each, the one-process oracle with the
+    model-2 specs, as phase 37's; exact launch counts per rank and in the
+    oracle (K10 once a Mamba2 layer a local worker a step); the ranks'
+    losses within ``TP_LOSS_TOL`` of the oracle's, and their final params
+    (rank 0 compares each gathered leaf with the oracle's, shared by IPC
+    handle) within ``FAMILY_LEAF_REL`` a leaf and ``FAMILY_MODEL_REL`` over
+    the model, as a share of the oracle's own move from the params both
+    start at; each summed peak under 0.90 of the card.
 
 Phase 1 also logs the free disk of the checkpoint directory's filesystem
 and the free host memory.  The last three lines of standard output are the
 kernels' JSON record (K1, K2 and K4 also carry ``rwkv6_launches``,
 ``moonshot_launches``, ``zamba2_launches``, ``ranks_launches`` (each
 rank's count, by phase 36's run), ``tp_launches`` (each rank's, by phase
-37's) and ``tp_shapes`` (phase 37's times at each geometry), K1 and K2
-``kill_resume_launches``, K10 ``zamba2_launches``), the card's name and
-power limit, and the result ``{"ok": true, "device": {...}}``.
+37's), ``tp_shapes`` (phase 37's times at each geometry),
+``families_tp_launches`` and ``families_tp_shapes`` (phase 38's; K10 too),
+K1 and K2 ``kill_resume_launches``, K10 ``zamba2_launches``), the card's
+name and power limit, and the result ``{"ok": true, "device": {...}}``.
 """
 import contextlib
 import gc
@@ -3132,7 +3162,7 @@ def run_faulted_serve(torch, kernels) -> None:
 
 # phase 36: data-parallel workers over two torch.distributed ranks
 DIST_ARCH = "qwen3-1.7b"
-DIST_LAYERS = 12
+DIST_LAYERS = 7
 DIST_RUNS = (("async", ["--sync", "async", "--compressor", "topk",
                         "--ef", "--overlap", "--tau-max", "2",
                         "--async-schedule", "uniform"], 4),
@@ -3140,11 +3170,14 @@ DIST_RUNS = (("async", ["--sync", "async", "--compressor", "topk",
 # bytes a rank holds an entry at tau_max 2 with one worker (params,
 # momentum, one EF residual, three ring slots, a gradient, the applied
 # update, the transients of the step): 36.4 at this phase's peak on an
-# H100 80GB HBM3.  Besides the summed peak (0.7835 of the card at 12
-# layers) the card holds three CUDA contexts, about 3 GB of each rank's
-# cache that is reserved but not allocated, and what this process keeps
-# reserved after phases 1-35 (4.85 GB): 14 layers ran out of memory in the
-# whole script, and 13 would leave about 2 GB
+# H100 80GB HBM3.  Beside the ranks the oracle keeps its whole final state
+# for rank 0 to compare with: 28 B an entry for the async run (params,
+# momentum, two workers' EF residuals, three ring slots), 16 for topk_ef.
+# At 12 layers (915,198,976 entries) that is 66.6 GB for the ranks and
+# 25.6 GB for the oracle, more than the card; at 7 (663,518,976) it is
+# 48.3 + 18.6 GB, with about 9 GB left for the three CUDA contexts, the
+# ranks' reserved but unallocated cache and this process's reserve after
+# phases 1-35 (with the params alone kept, 13 layers left about 2 GB)
 DIST_BYTES_PER_ENTRY = 36.4
 
 
@@ -3153,6 +3186,88 @@ def dist_argv(flags, steps):
             "--topk-ratio", str(TOPK_RATIO), "--workers", "2", "--batch",
             "4", "--seq", "256", "--steps", str(steps), "--device", "cuda",
             "--seed", "0", "--log-every", "1"]
+
+
+def run_grid_oracle(torch, kernels, cfg, argv, model: int = 1,
+                    whole: bool = False) -> dict:
+    """The one-process oracle of a ``--ranks`` run: ``argv``'s workers and
+    steps in this process, built from the library (as
+    ``repro_torch.launch.train`` builds them) with the model-``model``
+    specs, every kernel's counter zeroed just before.  -> losses, step
+    seconds, wall, launches, peak, the bytes a step by collective and the
+    final leaves in a checkpoint's order, which stay on the card: the
+    params', or with ``whole`` the params', the optimizer state's and the
+    sync state's; the rest is freed."""
+    from repro_torch import tree as T
+    from repro_torch.checkpoint import checkpoint_leaves
+    from repro_torch.data.pipeline import SyntheticLMDataset, to_device
+    from repro_torch.dist.workers import WorkerGroup
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.params import init_params, param_specs
+
+    dev = torch.device("cuda")
+    # the trainer's precision: bitwise the ranks' (train._train sets it)
+    set_matmul_precision(torch, False)
+    args = train._parse(argv)
+    defs = TF.model_defs(cfg)
+    specs = param_specs(defs, {"model": model})
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(defs, torch.Generator(device=dev).manual_seed(
+        args.seed), dev)
+    group = WorkerGroup(args.workers)
+    opt_state, state, run = train._build(args, cfg, group, params, specs)
+    data = SyntheticLMDataset(cfg.vocab_size, args.seq, args.batch,
+                              seed=args.seed)
+    losses, step_s, wire = [], [], []
+    for t in range(args.steps):
+        batch = to_device(data.batch(t), dev)
+        group.reset_wire()
+        t1 = time.perf_counter()
+        params, opt_state, state, metrics = run(params, opt_state, state,
+                                                batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+        losses.append(float(metrics["loss"]))
+        wire.append({k: v["bytes"] for k, v in group.wire.items()})
+    out = dict(losses=losses, step_s=step_s,
+               wall=time.perf_counter() - t0,
+               launches={k.name: k.launches for k in kernels},
+               peak=torch.cuda.max_memory_allocated(), wire=wire,
+               leaves=[x.detach() if isinstance(x, torch.Tensor) else x
+                       for x in (checkpoint_leaves((params, opt_state, state))
+                                 if whole else T.leaves(params))])
+    del params, opt_state, state, run, metrics, batch
+    gc.collect()
+    return out
+
+
+def release_oracle(torch) -> None:
+    """Give back what this process keeps on the card beside the oracle's
+    leaves before ranks start: the kernels' kept scratch (grown to the
+    oracle's whole rows) and the allocator's cache."""
+    from repro_torch.kernels.cr_reduce.kernel import topk_cr_reduce
+    from repro_torch.kernels.topk_ef.kernel import topk_ef
+
+    topk_ef.release_scratch()
+    topk_cr_reduce.release_scratch()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  this process holds {torch.cuda.memory_allocated()} bytes "
+        f"allocated, {torch.cuda.memory_reserved()} reserved; free on the "
+        f"card {torch.cuda.mem_get_info()[0]}")
+
+
+def drop_oracle(torch, oracle) -> None:
+    """Free the oracle's leaves once the ranks that shared them by IPC
+    handle are gone."""
+    oracle["leaves"].clear()
+    gc.collect()
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
 
 
 def run_dist(torch, kernels, records) -> None:
@@ -3174,7 +3289,8 @@ def run_dist(torch, kernels, records) -> None:
         f"ranks of one worker each on cuda:0 over gloo; "
         f"{DIST_BYTES_PER_ENTRY} B an entry a rank, "
         f"{2 * DIST_BYTES_PER_ENTRY * entries / total:.3f} of the card for "
-        f"both (computed); {host_resources()}")
+        f"both, and the oracle's whole final state, 28 B an entry (async), "
+        f"{28 * entries / total:.3f} (computed); {host_resources()}")
 
     # nccl runs one rank a card: two ranks on this one card must raise
     # before any step, named or by default
@@ -3198,46 +3314,34 @@ def run_dist(torch, kernels, records) -> None:
         want_oracle = {k: 2 * v if k == "topk_ef" else v
                        for k, v in want_one.items()}
 
-        # the oracle: both workers in this process
-        for k in kernels:
-            k.launches = 0
-        torch.cuda.reset_peak_memory_stats()
-        rep_o = {}
-        buf = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            hist_o = train.main(argv, report=rep_o)
-        wall_o = time.perf_counter() - t0
-        counts = {k.name: k.launches for k in kernels}
-        peak_o = torch.cuda.max_memory_allocated()
-        for line in buf.getvalue().splitlines():
-            log(f"  oracle | {line}")
-        log(f"dist {name} oracle (--workers 2, one process): {wall_o:.2f} s "
-            f"with init and digests; peak {peak_o / total:.4f} of the card; "
-            f"step_s {[round(r['step_s'], 4) for r in hist_o]}; wire bytes "
-            f"a step {rep_o['ranks'][0]['wire']}; digests "
-            f"{rep_o['ranks'][0]['digest_s']:.2f} s; launches "
-            f"{json.dumps(counts)}")
+        # the oracle: both workers in this process; its final params,
+        # optimizer state and sync state stay on the card for rank 0 to
+        # compare with
+        oracle = run_grid_oracle(torch, kernels, cfg, argv, whole=True)
+        counts = oracle["launches"]
+        kept = sum(x.numel() * x.element_size() for x in oracle["leaves"]
+                   if isinstance(x, torch.Tensor))
+        log(f"dist {name} oracle (--workers 2, one process): "
+            f"{oracle['wall']:.2f} s with init; {len(oracle['leaves'])} "
+            f"final leaves kept, {kept} bytes ({kept / entries:.2f} B an "
+            f"entry, {kept / total:.4f} of the card); peak "
+            f"{oracle['peak'] / total:.4f} of the card; step_s "
+            f"{[round(x, 4) for x in oracle['step_s']]}; wire bytes a step "
+            f"{oracle['wire']}; launches {json.dumps(counts)}")
         for k, count in counts.items():
             require(count == want_oracle.get(k, 0), f"dist {name} oracle: "
                     f"{k} launched {count} times, not {want_oracle.get(k, 0)}")
-        require(rep_o["ranks"][0]["launches"] == counts,
-                "the oracle's report disagrees with the counters")
-        losses_o = [r["loss"] for r in hist_o]
-        del hist_o
-        gc.collect()
-        torch.cuda.empty_cache()
-        log(f"dist: this process holds {torch.cuda.memory_allocated()} bytes "
-            f"allocated, {torch.cuda.memory_reserved()} reserved; free on "
-            f"the card {torch.cuda.mem_get_info()[0]}")
+        release_oracle(torch)
 
-        # the ranks: two processes sharing cuda:0
+        # the ranks: two processes sharing cuda:0; rank 0 compares each
+        # final leaf of the params, the optimizer state and the sync state
+        # with the oracle's, opened by IPC handle
         for k in kernels:
             k.launches = 0
         rep_r = {}
         t0 = time.perf_counter()
         hist_r = train.main(argv + ["--ranks", "2", "--dist-backend", "gloo"],
-                            report=rep_r)
+                            report=rep_r, compare_to=oracle["leaves"])
         wall_r = time.perf_counter() - t0
         require(all(k.launches == 0 for k in kernels),
                 "the parent launched a kernel")
@@ -3247,35 +3351,36 @@ def run_dist(torch, kernels, records) -> None:
                 f"{[round(x, 4) for x in r['step_s']]}; wire bytes a step "
                 f"{r['wire']}; peak {r['max_memory_allocated']} bytes "
                 f"({r['max_memory_allocated'] / total:.4f} of the card); "
-                f"digests {r['digest_s']:.2f} s; launches "
-                f"{json.dumps(r['launches'])}")
+                f"comparing the final leaves {r['compare_s']:.2f} s; "
+                f"launches {json.dumps(r['launches'])}")
             for k, count in r["launches"].items():
                 require(count == want_one.get(k, 0), f"dist {name} rank "
                         f"{r['rank']}: {k} launched {count} times, not "
                         f"{want_one.get(k, 0)}")
-        log(f"dist {name}: 2 ranks {wall_r:.2f} s (spawn, init and digests "
-            f"included); summed peak {sum(peaks)} bytes, "
+        log(f"dist {name}: 2 ranks {wall_r:.2f} s (spawn, init and the "
+            f"comparison included); summed peak {sum(peaks)} bytes, "
             f"{sum(peaks) / total:.4f} of the card")
         require(sum(peaks) <= 0.9 * total,
                 "the ranks' summed peak is above 90% of the card")
         losses_r = [r["loss"] for r in hist_r]
-        differ = [i for i, (a, b) in enumerate(zip(rep_o["digests"],
-                                                   rep_r["digests"]))
-                  if a != b]
+        diffs = rep_r["leaf_max_abs"]
+        differ = [path for path, x in diffs.items() if x != 0]
         log(f"dist {name}: losses {losses_r} (ranks) vs the oracle's "
-            f"{losses_o}; {len(rep_r['digests'])} leaf digests (SHA-256), "
-            f"leaves that differ {differ}")
-        require([x.hex() for x in losses_r] == [x.hex() for x in losses_o],
+            f"{oracle['losses']}; {len(diffs)} final leaves of the params "
+            f"({n_leaves}), the optimizer state and the sync state compared "
+            f"by rank 0 (as a checkpoint numbers them), leaves that differ "
+            f"{differ}")
+        require([x.hex() for x in losses_r]
+                == [x.hex() for x in oracle["losses"]],
                 "the ranks' losses differ from the in-process oracle's")
-        require(len(rep_r["digests"]) == len(rep_o["digests"])
-                and not differ, "the ranks' final state differs from the "
-                "oracle's")
+        require(len(diffs) == len(oracle["leaves"]) > n_leaves
+                and not differ, "the ranks' final params, optimizer state "
+                "or sync state differ from the oracle's")
         for k in want_one:
             records[k].setdefault("ranks_launches", {})[name] = [
                 r["launches"][k] for r in rep_r["ranks"]]
         del hist_r
-        gc.collect()
-        torch.cuda.empty_cache()
+        drop_oracle(torch, oracle)
 
 
 # phase 37: tensor parallelism over a 2 data x 2 model grid of four ranks
@@ -3324,8 +3429,13 @@ def tp_geometries(cfg):
     return {", ".join(names): geom for geom, names in out.items()}
 
 
-def check_tp_kernels(torch, dev, gen, records):
-    """Phase 37's first half: K1, K2 and K4 at the rank's geometries."""
+def check_tp_kernels(torch, dev, gen, records, geoms=None,
+                     key: str = "tp_shapes"):
+    """Phase 37's first half: K1, K2 and K4 at the rank's geometries
+    (``geoms``, ``{leaf names: (M, R)}``: phase 38's; by default phase
+    37's seven), their times recorded under ``key`` and logged under its
+    stem (``tp``, ``families_tp``)."""
+    tag = key.removesuffix("_shapes")
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3336,10 +3446,11 @@ def check_tp_kernels(torch, dev, gen, records):
     from repro_torch.kernels.topk_ef.kernel import topk_ef
     from repro_torch.kernels.topk_ef.ref import topk_ef_plain
 
-    cfg = dataclasses.replace(get_config(TP_ARCH), n_layers=TP_LAYERS)
-    geoms = tp_geometries(cfg)
-    require(len(geoms) == 7, f"{len(geoms)} tensor-parallel geometries, "
-            "not 7")
+    if geoms is None:
+        cfg = dataclasses.replace(get_config(TP_ARCH), n_layers=TP_LAYERS)
+        geoms = tp_geometries(cfg)
+        require(len(geoms) == 7, f"{len(geoms)} tensor-parallel "
+                "geometries, not 7")
     shapes = {n: {} for n in ("topk_ef", "topk_cr_deposit",
                               "topk_cr_reduce")}
     for names, (m, r) in geoms.items():
@@ -3360,7 +3471,7 @@ def check_tp_kernels(torch, dev, gen, records):
         shapes["topk_ef"][names] = dict(shape=[m, r], k=k, ms=ms,
                                         plain_ms=plain, library_ms=lib,
                                         bound_ms=bound_ms(nbytes))
-        log(f"tp check topk_ef ({m}, {r}) k={k} [{names}]: bitwise in the "
+        log(f"{tag} check topk_ef ({m}, {r}) k={k} [{names}]: bitwise in the "
             f"documented order {order}, new_err {same_e}, run to run "
             f"{repeat}; kernel {ms:.4f} ms, plain {plain:.4f} ms, "
             f"torch.topk {lib:.4f} ms, bound {bound_ms(nbytes):.4f} ms "
@@ -3406,7 +3517,7 @@ def check_tp_kernels(torch, dev, gen, records):
             bound_ms=bound_ms(nbytes))
         records["topk_cr_deposit"]["max_abs_err"] = max(
             records["topk_cr_deposit"]["max_abs_err"], dep_err)
-        log(f"tp check topk_cr_deposit (3, {m}, {r}) S=2 k={k} [{names}]: "
+        log(f"{tag} check topk_cr_deposit (3, {m}, {r}) S=2 k={k} [{names}]: "
             f"bitwise vs plain and run to run {dep_same}; kernel {ms:.4f} "
             f"ms, plain {plain:.4f} ms, index_put_(accumulate=True) "
             f"{lib:.4f} ms, bound {bound_ms(nbytes):.4f} ms")
@@ -3439,15 +3550,15 @@ def check_tp_kernels(torch, dev, gen, records):
             bound_ms=bound_ms(nbytes), route=route)
         records["topk_cr_reduce"]["max_abs_err"] = max(
             records["topk_cr_reduce"]["max_abs_err"], red_err)
-        log(f"tp check topk_cr_reduce (2, {m}, {k}) -> ({m}, {r}) bf16 vals "
-            f"[{names}]: bitwise vs plain and run to run {red_same}, "
+        log(f"{tag} check topk_cr_reduce (2, {m}, {k}) -> ({m}, {r}) bf16 "
+            f"vals [{names}]: bitwise vs plain and run to run {red_same}, "
             f"{route} route; kernel {ms:.4f} ms, plain {plain:.4f} ms, "
             f"zero_ + index_put_ {lib:.4f} ms, bound {bound_ms(nbytes):.4f} "
             "ms")
         del vals, idx, v16, flat, prods, buf, rows, slots, w
         torch.cuda.empty_cache()
     for name, per in shapes.items():
-        records[name]["tp_shapes"] = per
+        records[name][key] = per
 
 
 def run_tp(torch, kernels, records) -> None:
@@ -3458,16 +3569,10 @@ def run_tp(torch, kernels, records) -> None:
 
     from repro_torch import tree as T
     from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import SyntheticLMDataset, to_device
-    from repro_torch.dist.workers import WorkerGroup
-    from repro_torch.kernels.cr_reduce.kernel import topk_cr_reduce
-    from repro_torch.kernels.topk_ef.kernel import topk_ef
     from repro_torch.launch import train
     from repro_torch.models import transformer as TF
-    from repro_torch.models.params import (count_params, init_params,
-                                           param_specs)
+    from repro_torch.models.params import count_params
 
-    dev = torch.device("cuda")
     base = get_config(TP_ARCH)
     cfg = dataclasses.replace(base, n_layers=TP_LAYERS)
     n_leaves = model_leaves(TP_ARCH, cfg)
@@ -3490,51 +3595,22 @@ def run_tp(torch, kernels, records) -> None:
         want_oracle = {k: 2 * v if k == "topk_ef" else v
                        for k, v in want_one.items()}
 
-        # the oracle: both workers in this process, the model-2 specs
-        for k in kernels:
-            k.launches = 0
-        torch.cuda.reset_peak_memory_stats()
-        args = train._parse(argv)
-        specs = param_specs(defs, {"model": 2})
-        params = init_params(defs, torch.Generator(device=dev).manual_seed(
-            args.seed), dev)
-        opt_state, state, run = train._build(args, cfg, WorkerGroup(2),
-                                             params, specs)
-        data = SyntheticLMDataset(cfg.vocab_size, args.seq, args.batch,
-                                  seed=args.seed)
-        losses_o, step_o = [], []
-        t0 = time.perf_counter()
-        for t in range(steps):
-            batch = to_device(data.batch(t), dev)
-            t1 = time.perf_counter()
-            params, opt_state, state, metrics = run(params, opt_state,
-                                                    state, batch)
-            torch.cuda.synchronize()
-            step_o.append(time.perf_counter() - t1)
-            losses_o.append(float(metrics["loss"]))
-        wall_o = time.perf_counter() - t0
-        counts = {k.name: k.launches for k in kernels}
-        peak_o = torch.cuda.max_memory_allocated()
+        # the oracle: both workers in this process, the model-2 specs; its
+        # final params stay on the card, and rank 0 opens them by IPC
+        # handle and compares its gathered leaves with them
+        oracle = run_grid_oracle(torch, kernels, cfg, argv, model=2)
+        losses_o, counts = oracle["losses"], oracle["launches"]
         log(f"tp {name} oracle (one process, 2 workers, model-2 specs): "
-            f"{wall_o:.2f} s; losses {losses_o}; step_s "
-            f"{[round(x, 4) for x in step_o]}; peak {peak_o / total:.4f} of "
-            f"the card; launches {json.dumps(counts)}")
+            f"{oracle['wall']:.2f} s; losses {losses_o}; step_s "
+            f"{[round(x, 4) for x in oracle['step_s']]}; peak "
+            f"{oracle['peak'] / total:.4f} of the card; launches "
+            f"{json.dumps(counts)}")
         for k, count in counts.items():
             require(count == want_oracle.get(k, 0), f"tp {name} oracle: {k} "
                     f"launched {count} times, not {want_oracle.get(k, 0)}")
-        # the oracle's final params stay on the card; rank 0 opens them by
-        # IPC handle and compares its gathered leaves with them
-        oracle = [p.detach() for p in T.leaves(params)]
-        del params, opt_state, state, run, metrics, batch
         # the kernels' kept scratch grows to the oracle's whole rows
         # (151,936 for embed): give it back before the ranks start
-        topk_ef.release_scratch()
-        topk_cr_reduce.release_scratch()
-        gc.collect()
-        torch.cuda.empty_cache()
-        log(f"tp: this process holds {torch.cuda.memory_allocated()} bytes "
-            f"allocated, {torch.cuda.memory_reserved()} reserved; free on "
-            f"the card {torch.cuda.mem_get_info()[0]}")
+        release_oracle(torch)
 
         # the ranks: four processes sharing cuda:0; rank 0 gathers each
         # final leaf whole and compares it with the oracle's
@@ -3544,7 +3620,7 @@ def run_tp(torch, kernels, records) -> None:
         t0 = time.perf_counter()
         hist = train.main(argv + ["--ranks", "4", "--model-shards", "2",
                                   "--dist-backend", "gloo"], report=rep,
-                          compare_to=oracle)
+                          compare_to=oracle["leaves"])
         wall_r = time.perf_counter() - t0
         require(all(k.launches == 0 for k in kernels),
                 "the parent launched a kernel")
@@ -3580,7 +3656,8 @@ def run_tp(torch, kernels, records) -> None:
         log(f"tp {name}: losses {losses_r} (ranks) vs the oracle's "
             f"{losses_o}, largest difference {loss_err} (limit "
             f"{TP_LOSS_TOL}); final params: largest difference {worst} "
-            f"(limit {TP_PARAM_TOL * steps}); by leaf {json.dumps(diffs)}")
+            f"(limit {TP_PARAM_TOL * steps}); by leaf "
+            f"{json.dumps(dict(zip(T.paths(defs), diffs.values())))}")
         require(len(losses_r) == steps and np.all(np.isfinite(losses_r)),
                 f"tp {name}: the ranks' losses are not finite")
         require(loss_err <= TP_LOSS_TOL,
@@ -3590,11 +3667,412 @@ def run_tp(torch, kernels, records) -> None:
         for k in want_one:
             records[k].setdefault("tp_launches", {})[name] = [
                 r["launches"][k] for r in rep["ranks"]]
-        del hist, oracle
-        gc.collect()
+        del hist
         # the oracle's leaves were shared by IPC handle: free them here too
-        torch.cuda.ipc_collect()
-        torch.cuda.empty_cache()
+        drop_oracle(torch, oracle)
+
+
+# phase 38: tensor parallelism for the MoE, Mamba2 and RWKV6 stacks at full
+# width, cut in depth: (arch, layers, --ranks, tau_max, runs of (name,
+# flags, steps)); 2 workers and --model-shards 2 each.  Computed at phase
+# 36's 36.4 B an entry a replica: moonshot at 1 of 48 layers
+# (1,241,651,200 entries) holds one replica on a data 1 x model 2 grid,
+# 45.2 GB (a 2 x 2 grid's two, 90.4 GB, do not fit), with 2 workers at
+# tau_max 1 (one ring slot less, one EF residual more than phase 36's rate)
+# and the oracle's final params, 5.0 GB, beside it: 0.59 of the card,
+# under 0.85 with four contexts and this process's reserve; zamba2 at 3 of
+# 81 (668,325,312 entries; the shared block runs before layer 0) and rwkv6
+# at 6 of 24 (620,906,496) hold two replicas on a 2 x 2 grid, 48.7 and
+# 45.2 GB
+FAMILY_TP = (
+    ("moonshot-v1-16b-a3b", 1, 2, 1, (("async", 4), ("topk_ef", 2))),
+    ("zamba2-7b", 3, 4, 2, (("async", 4),)),
+    ("rwkv6-1.6b", 6, 4, 2, (("async", 4),)),
+)
+# K10 at a rank's heads in zamba2-7b training: batch 4 over 2 workers, 32
+# of the 64 heads of 112, N 64
+FAMILY_K10 = (2, 256, 32, 112, 64)
+# the ranks' final params against the oracle's: the Frobenius norm of each
+# leaf's difference over the norm of the oracle's own move of that leaf
+# (from the params both started at) within FAMILY_LEAF_REL, and the same
+# over the whole model within FAMILY_MODEL_REL.  bf16 partial sums added in
+# another order flip top-k picks near the threshold (and, in the MoE, a
+# token's expert near a tie), over every leaf: the first card run (H100
+# 80GB HBM3, 700 W) read 0.046-0.218 over the model and at most 0.296 in
+# a leaf (moonshot's ln_mlp, topk_ef; this phase logs every leaf's), where
+# the limits set before it, 0.1 and 0.75, had expected a few flips only.
+# Each limit is about twice the worst reading and under 1, what no update
+# at all reads.  They catch a gross fault only: with the model-group sum
+# of the sharded norms dropped from the backward (planted), zamba2 read
+# 0.248 over the model and 0.614 in conv_bc_w, rwkv6 0.107 and 0.279 (not
+# caught).  The f32 gradient check (FAMILY_GRAD, below) is the fine one
+FAMILY_LEAF_REL, FAMILY_MODEL_REL = 0.6, 0.45
+
+
+# phase 38's gradient check: one f32 forward and backward of each stack at
+# full width, cut to one layer (zamba2's shared block runs before it),
+# batch 2 x 256, over two model ranks against one process.  No top-k pick
+# can flip here; the ranks' row-parallel, vocab-parallel and norm sums only
+# add in another order than the one process's.  Set before the first card
+# run: the loss within FAMILY_GRAD_LOSS_RTOL and each gradient leaf within
+# FAMILY_GRAD_RTOL relative (Frobenius), twice the CPU tests' f32 bound
+# (tests/test_torch_tp.py's 5e-5) for the longer sums at full width.  The
+# first two card runs read the same bits: at most 6.93e-5 (the attention
+# q/k path of zamba2's shared block and moonshot: the softmax's gradient
+# cancels at the near-uniform attention of random weights), 3.5e-5 off
+# it, 2.9e-6 in rwkv6; the planted fault above 0.387 (zamba2's b_proj)
+# and 0.0255 (rwkv6's w_r)
+FAMILY_GRAD = (("moonshot-v1-16b-a3b", 1), ("zamba2-7b", 1),
+               ("rwkv6-1.6b", 1))
+FAMILY_GRAD_BATCH = (2, 256)
+FAMILY_GRAD_RTOL, FAMILY_GRAD_LOSS_RTOL = 1e-4, 1e-5
+
+
+def _f32_grads(torch, arch, n_layers, rank=0, size=1):
+    """The loss and the gradient leaves of one f32 forward and backward of
+    ``arch`` cut to ``n_layers`` on cuda:0 (model rank ``rank`` of ``size``
+    under the installed model group: its slices)."""
+    import dataclasses
+
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMDataset, to_device
+    from repro_torch.dist.train import mean_grads
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.params import init_params, param_specs
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    defs = TF.model_defs(cfg)
+    specs = param_specs(defs, {"model": size})
+    params = init_params(defs, torch.Generator(device=dev).manual_seed(0),
+                         dev, specs=specs, rank=rank, size=size)
+    batch = to_device(SyntheticLMDataset(
+        cfg.vocab_size, FAMILY_GRAD_BATCH[1], FAMILY_GRAD_BATCH[0],
+        seed=0).batch(0), dev)
+    loss, _, grads = mean_grads(cfg, params, batch)
+    return float(loss), T.paths(grads), T.leaves(grads), T.leaves(specs)
+
+
+def _family_grad_rank(rank, store, want, results):
+    """One of the two model ranks of phase 38's gradient check (a spawned
+    process): each of ``FAMILY_GRAD`` in f32; rank 0 gathers each gradient
+    leaf whole and compares it with the one process's (``want``, by IPC
+    handle; ``None`` on rank 1)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    from repro_torch.dist.sharding import WorkerRows
+    from repro_torch.launch.mesh import close, make_host_mesh
+    from repro_torch.models import actx, layers
+    from repro_torch.models import transformer as TF
+
+    torch.cuda.set_device(0)
+    set_matmul_precision(torch, False)
+    layers.COMPUTE_DTYPE = TF.COMPUTE_DTYPE = torch.float32
+    layout = make_host_mesh(backend="gloo", world=2, rank=rank,
+                            store_path=store, model=2)
+    actx.install(actx.ModelGroup(layout))
+    try:
+        out = []
+        for i, (arch, n_layers) in enumerate(FAMILY_GRAD):
+            loss, paths, grads, specs = _f32_grads(torch, arch, n_layers,
+                                                   rank, 2)
+            rels = {}
+            for j, (path, g, sp) in enumerate(zip(paths, grads, specs)):
+                dim = actx.model_dim(sp)
+                whole = g if dim is None \
+                    else WorkerRows(g, None, dim).gather()
+                if want is not None:
+                    w = want[i][1][j]
+                    norm = float(torch.linalg.vector_norm(w))
+                    diff = float(torch.linalg.vector_norm(
+                        whole.to(w.device) - w))
+                    rels[path] = diff / norm if norm else diff
+                del whole
+            out.append({"loss": loss, "rels": rels})
+            del grads
+            torch.cuda.empty_cache()
+        if want is not None:
+            results.put(out)
+    finally:
+        actx.install(None)
+        close(layout)
+
+
+def check_family_grads(torch) -> None:
+    """Phase 38's gradient check (see ``FAMILY_GRAD``): the one process
+    here, then the two model ranks, spawned."""
+    import multiprocessing
+    import queue
+    import tempfile
+
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as TF
+
+    set_matmul_precision(torch, False)
+    t0 = time.perf_counter()
+    kept = layers.COMPUTE_DTYPE
+    layers.COMPUTE_DTYPE = TF.COMPUTE_DTYPE = torch.float32
+    want = []
+    try:
+        for arch, n_layers in FAMILY_GRAD:
+            loss, _, grads, _ = _f32_grads(torch, arch, n_layers)
+            want.append((loss, [g.detach() for g in grads]))
+            del grads
+    finally:
+        layers.COMPUTE_DTYPE = TF.COMPUTE_DTYPE = kept
+    ctx = multiprocessing.get_context("spawn")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_grads_")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_family_grad_rank, daemon=True,
+                         args=(r, os.path.join(tmp, "store"),
+                               want if r == 0 else None, results))
+             for r in range(2)]
+    try:
+        for proc in procs:
+            proc.start()
+        got = None
+        while got is None:
+            try:
+                got = results.get(timeout=1.0)
+            except queue.Empty:
+                codes = [p.exitcode for p in procs]
+                require(all(c in (None, 0) for c in codes),
+                        f"gradient check: a rank failed ({codes})")
+                if None not in codes:
+                    # both ended: rank 0's result is in the queue or lost
+                    got = results.get(timeout=10.0)
+        for proc in procs:
+            proc.join(timeout=60)
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+            if proc.pid is not None:
+                proc.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+    for (arch, n_layers), (loss_o, grads_o), rec in zip(FAMILY_GRAD, want,
+                                                        got):
+        loss_rel = abs(rec["loss"] - loss_o) / abs(loss_o)
+        rels = rec["rels"]
+        worst = max(rels, key=rels.get)
+        log(f"tp38 grads {arch}, {n_layers} layer(s), f32, batch "
+            f"{FAMILY_GRAD_BATCH[0]} x {FAMILY_GRAD_BATCH[1]}, 2 model ranks "
+            f"vs one process: loss {rec['loss']} vs {loss_o}, relative "
+            f"{loss_rel:.3g} (limit {FAMILY_GRAD_LOSS_RTOL}); worst leaf "
+            f"{worst} {rels[worst]:.3g} (limit {FAMILY_GRAD_RTOL}); by leaf "
+            f"{json.dumps({p: float(f'{x:.3g}') for p, x in rels.items()})}")
+        require(len(rels) == len(grads_o), f"tp38 grads {arch}: leaves "
+                "missing")
+        require(loss_rel <= FAMILY_GRAD_LOSS_RTOL
+                and rels[worst] <= FAMILY_GRAD_RTOL,
+                f"tp38 grads {arch}: the ranks' f32 gradient is off the one "
+                "process's")
+    log(f"tp38 grads: {time.perf_counter() - t0:.2f} s (spawn included)")
+    del want
+    gc.collect()
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+
+
+def family_argv(arch, layers, tau, name, steps):
+    flags = ["--sync", "topk_ef"] if name == "topk_ef" else [
+        "--sync", "async", "--compressor", "topk", "--ef", "--overlap",
+        "--tau-max", str(tau), "--async-schedule", "uniform"]
+    return ["--arch", arch, "--n-layers", str(layers), *flags,
+            "--topk-ratio", str(TOPK_RATIO), "--workers", "2", "--batch",
+            "4", "--seq", "256", "--steps", str(steps), "--device", "cuda",
+            "--seed", "0", "--log-every", "1"]
+
+
+def check_family_tp_kernels(torch, dev, gen, records):
+    """Phase 38's first half: K1, K2 and K4 at every row geometry a rank of
+    phase 38's three configs gives them that phase 37 did not time, then
+    K10 at a rank's heads, each against its plain version."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd.kernel import ssd_chunked
+    from repro_torch.kernels.ssd.ref import ssd_plain
+
+    seen = set(tp_geometries(dataclasses.replace(
+        get_config(TP_ARCH), n_layers=TP_LAYERS)).values())
+    geoms = {}
+    for arch, layers, *_ in FAMILY_TP:
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        for names, geom in tp_geometries(cfg).items():
+            if geom not in seen:
+                seen.add(geom)
+                geoms[f"{arch}: {names}"] = geom
+    log(f"tp38: {len(geoms)} new rank geometries")
+    check_tp_kernels(torch, dev, gen, records, geoms, "families_tp_shapes")
+
+    args = ssd_inputs(torch, dev, gen, FAMILY_K10, "bfloat16", "u")
+    y, st = ssd_chunked(*args)
+    y2, st2 = ssd_chunked(*args)
+    py, ps = ssd_plain(*args)
+    torch.cuda.synchronize()
+    ymax, smax = float(py.float().abs().max()), float(ps.abs().max())
+    err = (y.float() - py.float()).abs()
+    over = float((err / (SSD_REL * ymax + 2.0 ** -7 * py.float().abs()))
+                 .max())
+    s_over = float((st - ps).abs().max()) / (SSD_REL * smax)
+    same = torch.equal(y, y2) and torch.equal(st, st2)
+    require(over <= 1 and s_over <= 1 and same and bool(
+        torch.isfinite(y.float()).all()),
+        f"ssd_chunked at a rank's heads {FAMILY_K10} != plain version")
+    ms = time_ms(torch, lambda: ssd_chunked(*args), warmup=2, iters=5)
+    plain = time_ms(torch, lambda: ssd_plain(*args))
+    nbytes, flops = ssd_bytes_flops(FAMILY_K10, 2)
+    t_bytes, t_ops = bound_ms(nbytes), flops / BF16_FLOPS_PER_S * 1e3
+    bnd, by = (t_bytes, "bytes") if t_bytes >= t_ops \
+        else (t_ops, "operations")
+    log(f"tp38 check ssd_chunked (B, T, H, hd, N) = {FAMILY_K10} bf16: y "
+        f"max_abs_err {float(err.max())} (largest error over its limit "
+        f"{over}), state {s_over} of its limit, run to run bitwise {same}; "
+        f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms "
+        f"({by}); no single PyTorch call computes the chunked scan")
+    records["ssd_chunked"]["max_abs_err"] = max(
+        records["ssd_chunked"]["max_abs_err"], float(err.max()))
+    records["ssd_chunked"]["families_tp_shapes"] = {
+        "zamba2-7b: a rank's heads": dict(
+            shape=list(FAMILY_K10), ms=ms, plain_ms=plain, bound_ms=bnd,
+            bound_by=by, library_ms=None)}
+    del args, y, y2, st, st2, py, ps, err
+    torch.cuda.empty_cache()
+
+
+def run_family_tp(torch, kernels, records) -> None:
+    """Phase 38's second half (see the module docstring)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.params import count_params, init_params
+
+    dev = torch.device("cuda")
+    total = torch.cuda.get_device_properties(0).total_memory
+    for arch, layers, ranks, tau, runs in FAMILY_TP:
+        base = get_config(arch)
+        cfg = dataclasses.replace(base, n_layers=layers)
+        defs = TF.model_defs(cfg)
+        entries, n_leaves = count_params(defs), len(T.leaves(defs))
+        data = ranks // 2
+        local = 2 // data
+        held = DIST_BYTES_PER_ENTRY * entries * data + 4 * entries
+        log(f"tp38: {arch} at full width, {layers} of {base.n_layers} "
+            f"layers: {n_leaves} leaves, {entries} entries; 2 workers over "
+            f"a {data} data x 2 model grid of {ranks} ranks on cuda:0 over "
+            f"gloo, tau_max {tau}; {data} replica(s) at "
+            f"{DIST_BYTES_PER_ENTRY} B an entry and the oracle's final "
+            f"params: {held / 1e9:.2f} GB, {held / total:.3f} of the card "
+            f"(computed); {host_resources()}")
+        for name, steps in runs:
+            argv = family_argv(arch, layers, tau, name, steps)
+            k1 = n_leaves * steps
+            sync = "topk_cr_reduce" if name == "topk_ef" \
+                else "topk_cr_deposit"
+            want_one = {"topk_ef": k1 * local, sync: k1}
+            want_oracle = {"topk_ef": 2 * k1, sync: k1}
+            if cfg.block_type == "mamba2":
+                # K10 once a Mamba2 layer a worker a step, forward only
+                want_one["ssd_chunked"] = layers * steps * local
+                want_oracle["ssd_chunked"] = 2 * layers * steps
+            tag = f"tp38 {arch} {name}"
+
+            oracle = run_grid_oracle(torch, kernels, cfg, argv, model=2)
+            counts = oracle["launches"]
+            log(f"{tag} oracle (one process, 2 workers, model-2 specs): "
+                f"{oracle['wall']:.2f} s; losses {oracle['losses']}; "
+                f"step_s {[round(x, 4) for x in oracle['step_s']]}; peak "
+                f"{oracle['peak'] / total:.4f} of the card; launches "
+                f"{json.dumps(counts)}")
+            for k, count in counts.items():
+                require(count == want_oracle.get(k, 0), f"{tag} oracle: "
+                        f"{k} launched {count} times, not "
+                        f"{want_oracle.get(k, 0)}")
+            require(oracle["peak"] <= 0.9 * total,
+                    f"{tag} oracle: peak above 90% of the card")
+            # the oracle's own move of each leaf, from the params both
+            # runs start at
+            init = init_params(defs, torch.Generator(device=dev).manual_seed(
+                0), dev)
+            paths = T.paths(init)
+            moved = {p: float(torch.linalg.vector_norm(f - i))
+                     for p, f, i in zip(paths, oracle["leaves"],
+                                        T.leaves(init))}
+            del init
+            release_oracle(torch)
+
+            for k in kernels:
+                k.launches = 0
+            rep = {}
+            t0 = time.perf_counter()
+            hist = train.main(argv + ["--ranks", str(ranks),
+                                      "--model-shards", "2",
+                                      "--dist-backend", "gloo"],
+                              report=rep, compare_to=oracle["leaves"])
+            wall = time.perf_counter() - t0
+            require(all(k.launches == 0 for k in kernels),
+                    "the parent launched a kernel")
+            peaks = [r["max_memory_allocated"] for r in rep["ranks"]]
+            for r in rep["ranks"]:
+                log(f"{tag} rank {r['rank']}: step_s "
+                    f"{[round(x, 4) for x in r['step_s']]}; bytes a step by "
+                    f"collective {r['wire']}; peak "
+                    f"{r['max_memory_allocated']} bytes "
+                    f"({r['max_memory_allocated'] / total:.4f} of the card); "
+                    f"spawn to start {r['spawn_s']:.2f} s, set-up "
+                    f"{r['setup_s']:.2f} s, comparing the final leaves "
+                    f"{r['compare_s']:.2f} s; launches "
+                    f"{json.dumps(r['launches'])}")
+                for k, count in r["launches"].items():
+                    require(count == want_one.get(k, 0), f"{tag} rank "
+                            f"{r['rank']}: {k} launched {count} times, not "
+                            f"{want_one.get(k, 0)}")
+                require(any(k.startswith("model_") for k in r["wire"][0]),
+                        f"{tag} rank {r['rank']}: no model-group bytes")
+            log(f"{tag}: {ranks} ranks {wall:.2f} s (spawn, init and the "
+                f"comparison included); summed peak {sum(peaks)} bytes, "
+                f"{sum(peaks) / total:.4f} of the card")
+            require(sum(peaks) <= 0.9 * total,
+                    f"{tag}: the ranks' summed peak is above 90% of the card")
+            losses = [r["loss"] for r in hist]
+            loss_err = max(abs(a - b) for a, b in zip(losses,
+                                                      oracle["losses"]))
+            rel = {p: rep["leaf_l2"][str(i)] / moved[p]
+                   for i, p in enumerate(paths)}
+            whole = math.sqrt(sum(x * x for x in rep["leaf_l2"].values())
+                              / sum(x * x for x in moved.values()))
+            worst = max(rel, key=rel.get)
+            log(f"{tag}: losses {losses} (ranks) vs the oracle's "
+                f"{oracle['losses']}, largest difference {loss_err} (limit "
+                f"{TP_LOSS_TOL}); final params against the oracle's, over "
+                f"its own move: whole model {whole:.4g} (limit "
+                f"{FAMILY_MODEL_REL}), worst leaf {worst} {rel[worst]:.4g} "
+                f"(limit {FAMILY_LEAF_REL}); by leaf "
+                f"{json.dumps({p: round(x, 5) for p, x in rel.items()})}; "
+                f"largest entry difference by leaf "
+                f"{json.dumps(dict(zip(paths, rep['leaf_max_abs'].values())))}")
+            require(len(losses) == steps and np.all(np.isfinite(losses)),
+                    f"{tag}: the ranks' losses are not finite")
+            require(loss_err <= TP_LOSS_TOL,
+                    f"{tag}: the ranks' losses are off the oracle's")
+            require(len(rel) == n_leaves and min(moved.values()) > 0
+                    and rel[worst] <= FAMILY_LEAF_REL
+                    and whole <= FAMILY_MODEL_REL,
+                    f"{tag}: the ranks' final params are off the oracle's")
+            for k in want_one:
+                records[k].setdefault("families_tp_launches", {})[
+                    f"{arch} {name}"] = [r["launches"][k]
+                                         for r in rep["ranks"]]
+            del hist
+            drop_oracle(torch, oracle)
 
 
 def main() -> int:
@@ -3790,6 +4268,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_tp_kernels(torch, dev, gen, records)
     run_tp(torch, all_kernels(), records)
+
+    # tensor parallelism for the MoE, Mamba2 and RWKV6 stacks: K1, K2, K4
+    # and K10 at the new rank geometries, then each stack over its grid
+    # against the one-process oracle, every kernel's counter zeroed just
+    # before each run
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_family_tp_kernels(torch, dev, gen, records)
+    check_family_grads(torch)
+    run_family_tp(torch, all_kernels(), records)
     log(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -3800,7 +4288,8 @@ def main() -> int:
                                 for name, ms in EARLIER_MS.items()))
     extra = ("sector_bound_ms", "rwkv6_launches", "moonshot_launches",
              "zamba2_launches", "kill_resume_launches", "ranks_launches",
-             "tp_launches", "tp_shapes")
+             "tp_launches", "tp_shapes", "families_tp_launches",
+             "families_tp_shapes")
     line = [{k: records[kern.name][k] for k in keys
              + tuple(k for k in extra if k in records[kern.name])}
             for kern in all_kernels()]

@@ -40,7 +40,6 @@ reading its arrays.
 """
 from __future__ import annotations
 
-import hashlib
 import json
 import os
 import tempfile
@@ -101,6 +100,14 @@ def _describe(tree, leaves: list):
     if isinstance(tree, (int, float)) and not isinstance(tree, bool):
         return {"kind": type(tree).__name__}
     raise TypeError(f"cannot checkpoint a leaf of type {type(tree)}")
+
+
+def checkpoint_leaves(tree) -> list:
+    """``tree``'s leaves in the order :func:`save_checkpoint` writes them:
+    leaf ``i`` is the ``.npz``'s array ``"i"``."""
+    leaves: list = []
+    _describe(tree, leaves)
+    return leaves
 
 
 def _host_array(leaf) -> np.ndarray:
@@ -172,24 +179,6 @@ def save_checkpoint(ckpt_dir: str, step: int, tree, *,
         _drain(arrays)
         raise
     return path
-
-
-def _digest(arr: np.ndarray) -> str:
-    arr = np.require(arr, requirements="C")
-    return f"{arr.dtype.str} {arr.shape} " + \
-        hashlib.sha256(arr.reshape(-1).view(np.uint8)).hexdigest()
-
-
-def leaf_digests(tree, *, write: bool = True) -> list[str] | None:
-    """``"<dtype> <shape> <SHA-256>"`` of each leaf's array as
-    :func:`save_checkpoint` would write it, in its leaf order (gathered
-    over the ranks as there), without writing anything; ``write=False``
-    only takes part in the gathers and returns ``None``."""
-    _, _, arrays = _host_arrays(tree)
-    if not write:
-        _drain(arrays)
-        return None
-    return [_digest(arr) for arr in arrays]
 
 
 def _read_sidecar(path: str) -> dict:

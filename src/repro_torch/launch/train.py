@@ -50,9 +50,11 @@ forward and backward with Megatron's collectives over its model group
 (`repro_torch.models.actx`); compression and delivery run on its own rows
 and the payloads cross its data group only.  The counterpart of the
 reference's ``--devices D --model-shards m`` is ``--workers D/m --ranks D
---model-shards m``.  Only the attention stacks without experts run it (the
-MoE, Mamba2 and RWKV6 stacks refuse ``m > 1`` before any rank starts), and
-the fused delivery stays fused.  ``--sync exact`` takes ``--ranks m
+--model-shards m``.  Every stack runs it: the attention stacks, the MoE
+over the rank's experts, Mamba2 and RWKV6 over the rank's heads; an ``m``
+that would cut a split leaf another way than the reference's spec (the
+experts, the heads or ``d_ff`` not divisible) is refused before any rank
+starts.  The fused delivery stays fused.  ``--sync exact`` takes ``--ranks m
 --model-shards m`` (one data rank).  A checkpoint holds whole leaves, as
 the reference's ``--model-shards m`` run writes them, and resumes under
 any layout with the same ``m``; a fused async checkpoint of another ``m``
@@ -188,16 +190,17 @@ def main(argv=None, *, cfg=None, report=None,
     does.  A ``report`` dict receives ``"ranks"``, one dict a rank (its
     kernel launches, peak device memory, step seconds and per-step wire
     bytes by collective, and the seconds its set-up before the first
-    step, its share of the comparison and of the digests took; under
-    ``--ranks``, also from the parent's spawn to the rank's start and its
-    rendezvous) and ``"digests"``, the SHA-256 of each leaf of the final
-    ``(params, opt_state, state)`` as a one-process checkpoint of it would
-    hold it (`repro_torch.checkpoint.leaf_digests`).  ``compare_to`` (the
-    whole param leaves of another run, in leaf order) makes the report's
-    ``"leaf_max_abs"`` the largest absolute difference of each final
-    param leaf, gathered whole, from its counterpart, by path (rank 0
-    compares; the leaves reach it through ``torch.multiprocessing``,
-    CUDA ones by IPC handle), in place of the digests (``None``)."""
+    step and its share of the comparison took; under ``--ranks``, also
+    from the parent's spawn to the rank's start and its rendezvous).
+    ``compare_to`` (the leaves of another run's final ``(params,
+    opt_state, state)`` in the one-process layout, in the order a
+    checkpoint writes them, or the first of them, e.g. the params alone)
+    makes the report's ``"leaf_max_abs"`` the largest absolute difference
+    of each of as many final leaves, gathered whole, from its
+    counterpart, keyed as the checkpoint's arrays (``"0"``, ``"1"``,
+    ...), and ``"leaf_l2"`` the Frobenius norm of each difference (rank
+    0 compares; the leaves reach it through ``torch.multiprocessing``,
+    CUDA ones by IPC handle); without it both are ``None``."""
     args = _parse(argv)
     if args.ranks > 1 or args.model_shards > 1:
         return _run_ranks(args, cfg, report, compare_to)
@@ -205,8 +208,8 @@ def main(argv=None, *, cfg=None, report=None,
     rep = None if report is None else {}
     history = _train(args, cfg, RankLayout(), rep, compare_to)
     if report is not None:
-        report["digests"] = rep.pop("digests")
         report["leaf_max_abs"] = rep.pop("leaf_max_abs")
+        report["leaf_l2"] = rep.pop("leaf_l2")
         report["ranks"] = [rep]
     return history
 
@@ -323,8 +326,8 @@ def _run_ranks(args, cfg, report, compare_to):
         shutil.rmtree(tmp, ignore_errors=True)
     if report is not None:
         ranks = [got[r]["report"] for r in range(args.ranks)]
-        report["digests"] = ranks[0].pop("digests")
         report["leaf_max_abs"] = ranks[0].pop("leaf_max_abs")
+        report["leaf_l2"] = ranks[0].pop("leaf_l2")
         report["ranks"] = ranks
     return got[0]["history"]
 
@@ -440,7 +443,7 @@ def _train(args, cfg, layout, report, compare_to=None) -> list[dict]:
     import torch
 
     from repro_torch import tree as T
-    from repro_torch.checkpoint import (latest_step, leaf_digests,
+    from repro_torch.checkpoint import (checkpoint_leaves, latest_step,
                                         load_checkpoint, save_checkpoint)
     from repro_torch.data.pipeline import SyntheticLMDataset, to_device
     from repro_torch.dist import sharding as SH
@@ -591,31 +594,35 @@ def _train(args, cfg, layout, report, compare_to=None) -> list[dict]:
     if history:
         print(f"final loss {np.mean(losses[-10:]):.4f}", flush=True)
     t0 = time.perf_counter()
-    leaf_max_abs = None
+    leaf_max_abs = leaf_l2 = None
     if compare_to is not None:
         # every rank joins each leaf's gather; rank 0 compares it whole
-        view = SH.shard_view(params, specs)
-        if len(compare_to) != len(T.leaves(view)):
+        mine = checkpoint_leaves(whole(params, opt_state, state))
+        if len(compare_to) > len(mine):
             raise ValueError(f"compare_to holds {len(compare_to)} leaves, "
-                             f"the params {len(T.leaves(view))}")
-        leaf_max_abs = {}
-        for path, leaf, want in zip(T.paths(view), T.leaves(view),
-                                    compare_to):
-            if want is not None and tuple(leaf.shape) != tuple(want.shape):
-                raise ValueError(f"{path}: {tuple(leaf.shape)} against "
-                                 f"{tuple(want.shape)} to compare to")
+                             f"the run's state {len(mine)}")
+        leaf_max_abs, leaf_l2 = {}, {}
+        for i, (leaf, want) in enumerate(zip(mine, compare_to)):
             got = leaf.gather() if isinstance(leaf, SH.WorkerRows) \
-                else leaf.detach()
+                else leaf
             if want is not None:
-                leaf_max_abs[path] = float(
-                    (got.to(want.device) - want).abs().max())
+                got = torch.as_tensor(got).detach()
+                want = torch.as_tensor(want).detach()
+                if got.shape != want.shape or got.dtype != want.dtype:
+                    raise ValueError(
+                        f"leaf {i}: {got.dtype} {tuple(got.shape)} against "
+                        f"{want.dtype} {tuple(want.shape)} to compare to")
+                # f32 for bf16 and f32 leaves, f64 for the integer ones
+                dt = torch.promote_types(want.dtype, torch.float32) \
+                    if want.is_floating_point() else torch.float64
+                diff = got.to(want.device, dt) - want.to(dt)
+                leaf_max_abs[str(i)] = float(diff.abs().max()) \
+                    if diff.numel() else 0.0
+                leaf_l2[str(i)] = float(torch.linalg.vector_norm(diff))
+                del diff
             del got
     compare_s = time.perf_counter() - t0
     if report is not None:
-        t0 = time.perf_counter()
-        # a comparison holds the params whole: no digests beside it
-        digests = None if compare_to is not None else leaf_digests(
-            whole(params, opt_state, state), write=writer)
         report.update(
             rank=layout.rank, device=str(device),
             launches={k.name: k.launches - launched[k.name]
@@ -623,8 +630,7 @@ def _train(args, cfg, layout, report, compare_to=None) -> list[dict]:
             max_memory_allocated=(torch.cuda.max_memory_allocated(device)
                                   if device.type == "cuda" else None),
             step_s=[r["step_s"] for r in history], wire=wire,
-            digests=digests, digest_s=time.perf_counter() - t0,
-            leaf_max_abs=leaf_max_abs, setup_s=setup_s,
+            leaf_max_abs=leaf_max_abs, leaf_l2=leaf_l2, setup_s=setup_s,
             compare_s=compare_s)
     return history
 

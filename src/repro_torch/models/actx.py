@@ -19,8 +19,13 @@ touch it.
   forward, identity backward.  It goes after a row-parallel product
   (``wo``, ``w_down``) and after the vocab-parallel lookup.
 * :func:`gather_leaf` gathers a model-sharded leaf that a layer uses
-  whole; its backward takes this rank's slice of the whole gradient, which
-  every rank computes alike.
+  whole (or an activation sharded on a dim, as RWKV6's channel-mix gate);
+  its backward takes this rank's slice of the whole gradient, which every
+  rank computes alike.
+* :func:`psum` is a sum over the model group forward *and* backward: a
+  partial value every rank then uses on its own shard, as a norm's sum of
+  squares over a sharded dim (Mamba2's ``gate_norm``, RWKV6's ``ln_x``),
+  whose gradient is partial on each rank too.
 * :func:`vocab_parallel_nll` is the cross entropy of vocab-sharded logits:
   a max over the group, then the sums of exponentials and the target
   logits, without gathering the (B, S, V) logits.
@@ -138,6 +143,17 @@ class _ReduceOut(torch.autograd.Function):
         return grad, None
 
 
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return group.sum(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.group.sum(grad), None
+
+
 class _GatherLeaf(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, group):
@@ -160,9 +176,15 @@ def reduce_out(x: torch.Tensor) -> torch.Tensor:
     return x if _CTX is None else _ReduceOut.apply(x, _CTX)
 
 
+def psum(x: torch.Tensor) -> torch.Tensor:
+    """A model-group sum forward and backward (both counted as
+    ``model_psum``)."""
+    return x if _CTX is None else _Psum.apply(x, _CTX)
+
+
 def gather_leaf(x: torch.Tensor, dim: int | None) -> torch.Tensor:
-    """The whole leaf of this rank's slice ``x`` sharded on ``dim``
-    (``None``: ``x`` is whole already)."""
+    """The whole leaf (or activation) of this rank's slice ``x`` sharded on
+    ``dim`` (``None``: ``x`` is whole already)."""
     if _CTX is None or dim is None:
         return x
     return _GatherLeaf.apply(x, dim, _CTX)

@@ -31,11 +31,21 @@ def rmsnorm_def(d: int) -> ParamDef:
     return ParamDef((d,), ("embed",), init="ones")
 
 
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
-            eps: float = 1e-6) -> torch.Tensor:
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6, *,
+            sharded: bool = False) -> torch.Tensor:
+    """RMSNorm over the last dim.  ``sharded``: under a model group that
+    dim is this rank's shard of one split over the group (``scale`` its
+    slice), and the sum of squares is summed over the group, forward and
+    backward (`repro_torch.models.actx.psum`); without one it is whole."""
     dt = x.dtype
     x = x.float()
-    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    ctx = actx.current() if sharded else None
+    if ctx is None:
+        ms = torch.mean(x * x, dim=-1, keepdim=True)
+    else:
+        ms = actx.psum(torch.sum(x * x, dim=-1, keepdim=True)) \
+            / (x.shape[-1] * ctx.size)
+    x = x * torch.rsqrt(ms + eps)
     return (x * scale.float()).to(dt)
 
 

@@ -17,6 +17,16 @@ state (decode, T = 1) the block runs the model's own chunked form
 dtype before the product with X, exactly as the reference does.  So a
 bf16 prefill here may differ from the reference's by one bf16 rounding
 step of y.
+
+Under a `repro_torch.models.actx` model group the ``dinner`` and
+``heads`` leaves are this rank's shards: ``z``, ``x`` and ``dt`` are
+column-parallel (their input through ``copy_in``), the depthwise
+``conv_x`` is local, the scan runs on the rank's ``H / m`` heads, and
+``out_proj`` is row-parallel (``reduce_out``).  ``B`` and ``C`` come from
+the replicated ``b_proj`` / ``c_proj`` / ``conv_bc_*`` but feed the rank's
+heads only, so their gradient is summed over the group where they enter
+the scan (``copy_in``).  ``gate_norm`` normalizes over the whole
+``dinner``: its sum of squares is summed over the group both ways.
 """
 from __future__ import annotations
 
@@ -25,6 +35,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ssd import ops as SSD
 from repro_torch.kernels.ssd.ref import CHUNK, chunk_len
+from repro_torch.models import actx
 from repro_torch.models.layers import rmsnorm
 from repro_torch.models.params import ParamDef
 
@@ -115,18 +126,20 @@ def mamba2_block(params, cfg, x, *, state=None):
     """x: (B, T, d).  ``state``: None (prefill / training forward: zero
     state, the scan through K10 on the card) or ``{"conv_x", "conv_bc",
     "ssm"}`` to continue from (decode).  Returns (out (B, T, d), new state
-    ``{"conv_x", "conv_bc"}`` in x's dtype and ``"ssm"`` f32)."""
+    ``{"conv_x", "conv_bc"}`` in x's dtype and ``"ssm"`` f32).  Under a
+    model group ``dinner`` and H are the rank's shares."""
     b, t, d = x.shape
     dt_ = x.dtype
-    di = cfg.ssm_expand * d
-    n, h = cfg.ssm_state, cfg.ssm_heads
+    n = cfg.ssm_state
+    di, h = params["x_proj"].shape[1], params["dt_proj"].shape[1]
     hd = di // h
 
-    z = x @ params["z_proj"].to(dt_)
-    xin = x @ params["x_proj"].to(dt_)
+    xc = actx.copy_in(x)
+    z = xc @ params["z_proj"].to(dt_)
+    xin = xc @ params["x_proj"].to(dt_)
     bc = torch.cat([x @ params["b_proj"].to(dt_),
                     x @ params["c_proj"].to(dt_)], dim=-1)
-    dt_raw = x @ params["dt_proj"].to(dt_)                   # (B, T, H)
+    dt_raw = xc @ params["dt_proj"].to(dt_)                  # (B, T, H)
 
     cx = None if state is None else state["conv_x"]
     cbc = None if state is None else state["conv_bc"]
@@ -134,6 +147,7 @@ def mamba2_block(params, cfg, x, *, state=None):
                                params["conv_x_b"].to(dt_), cx)
     bc, new_cbc = _causal_conv(bc, params["conv_bc_w"].to(dt_),
                                params["conv_bc_b"].to(dt_), cbc)
+    bc = actx.copy_in(bc)
     bmat, cmat = bc[..., :n].contiguous(), bc[..., n:].contiguous()
 
     dtf = dt_raw.float() + params["dt_bias"].float()
@@ -149,8 +163,9 @@ def mamba2_block(params, cfg, x, *, state=None):
     y = y + params["d_skip"].to(dt_)[None, None, :, None] \
         * xin.reshape(b, t, h, hd)
     y = y.reshape(b, t, di)
-    y = rmsnorm(y * F.silu(z), params["gate_norm"], cfg.norm_eps)
-    out = y @ params["out_proj"].to(dt_)
+    y = rmsnorm(y * F.silu(z), params["gate_norm"], cfg.norm_eps,
+                sharded=True)
+    out = actx.reduce_out(y @ params["out_proj"].to(dt_))
     return out, {"conv_x": new_cx, "conv_bc": new_cbc, "ssm": new_ssm}
 
 

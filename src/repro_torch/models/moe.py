@@ -9,12 +9,25 @@ of the router probabilities (the lowest expert index wins a tie), each
 cumulative count over (token, choice), and tokens past the capacity
 dropped.  Routing is per group, so tokens of one group (rows of one batch)
 compete for capacity: batch rows are coupled.
+
+Under a `repro_torch.models.actx` model group (expert parallelism) the
+expert leaves are this rank's ``E / m`` experts.  Routing stays
+replicated: every model rank computes the same bits of ``route`` from the
+whole (gathered) router, so capacity drops are the same on every rank.
+The rank slices ``dispatch`` and ``combine`` to its experts, runs the
+three expert products on its shards, and the combined outputs are summed
+over the group (``reduce_out``).  The router's gradient has two parts: the
+aux loss's is whole on every rank, the combine weights' partial (this
+rank's experts only).  So the combine takes its logits through
+``copy_in`` (summed backward) and the aux loss takes them as they are:
+each part reaches the router once.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import actx
 from repro_torch.models.params import ParamDef
 
 # Tokens are routed within fixed-size groups so the dispatch tensor is
@@ -39,20 +52,25 @@ def capacity(group: int, k: int, n_experts: int, factor: float) -> int:
     return max(4, -(-cap // 4) * 4)
 
 
-def route(router_logits: torch.Tensor, k: int, cap: int):
+def route(router_logits: torch.Tensor, k: int, cap: int,
+          aux_logits: torch.Tensor | None = None):
     """Top-k routing with per-expert capacity.
 
     router_logits: (G, T, E).  Returns (dispatch (G, T, E, C) 0/1 f32,
-    combine (G, T, E, C) f32, aux_loss scalar f32)."""
+    combine (G, T, E, C) f32, aux_loss scalar f32).  ``aux_logits`` (the
+    same values; default ``router_logits``) are the logits the aux loss's
+    router probabilities are taken from, for a gradient routed apart."""
     g, t, e = router_logits.shape
     probs = torch.softmax(router_logits.float(), dim=-1)
+    aux_probs = probs if aux_logits is None \
+        else torch.softmax(aux_logits.float(), dim=-1)
     topk_idx = torch.argsort(-probs, dim=-1, stable=True)[..., :k]
     topk_probs = torch.gather(probs, -1, topk_idx)
     topk_probs = topk_probs / torch.sum(topk_probs, dim=-1, keepdim=True)
 
     # load-balancing auxiliary loss (Switch/GShard form)
     sel = F.one_hot(topk_idx, e)                               # (G, T, k, E)
-    me = torch.mean(probs, dim=1)                              # (G, E)
+    me = torch.mean(aux_probs, dim=1)                          # (G, E)
     ce = torch.mean(torch.sum(sel, dim=2).float(), dim=1)      # (G, E)
     aux = torch.mean(me * ce) * e * e
 
@@ -75,7 +93,8 @@ def route(router_logits: torch.Tensor, k: int, cap: int):
 def moe_block(params, cfg, x: torch.Tensor):
     """x: (B, S, d) -> (B, S, d), plus the aux loss.  The B * S tokens are
     routed in groups of ``min(GROUP_SIZE, B * S)``, which must divide
-    them."""
+    them.  Under a model group the expert leaves are this rank's experts
+    (see the module docstring)."""
     b, s, d = x.shape
     dt = x.dtype
     e, k = cfg.n_experts, cfg.experts_per_token
@@ -92,12 +111,21 @@ def moe_block(params, cfg, x: torch.Tensor):
         logits = torch.einsum("gtd,de->gte", groups,
                               params["router"].to(dt))
         cap = capacity(gsz, k, e, cfg.capacity_factor)
-        dispatch, combine, aux = route(logits, k, cap)
-        xe = torch.einsum("gtec,gtd->egcd", dispatch.to(dt), groups)
+        ctx = actx.current()
+        if ctx is None:
+            dispatch, combine, aux = route(logits, k, cap)
+        else:
+            dispatch, combine, aux = route(actx.copy_in(logits), k, cap,
+                                           aux_logits=logits)
+            n = e // ctx.size
+            dispatch = dispatch[:, :, ctx.rank * n:(ctx.rank + 1) * n]
+            combine = combine[:, :, ctx.rank * n:(ctx.rank + 1) * n]
+        xe = torch.einsum("gtec,gtd->egcd", dispatch.to(dt),
+                          actx.copy_in(groups))
     gate = F.silu(torch.einsum("egcd,edf->egcf", xe,
                                params["w_gate"].to(dt)))
     up = torch.einsum("egcd,edf->egcf", xe, params["w_up"].to(dt))
     out_e = torch.einsum("egcf,efd->egcd", gate * up,
                          params["w_down"].to(dt))
     out = torch.einsum("egcd,gtec->gtd", out_e, combine.to(dt))
-    return out.reshape(b, s, d), aux
+    return actx.reduce_out(out.reshape(b, s, d)), aux

@@ -18,12 +18,25 @@ kernel, so this is plain torch: a Python loop over chunks in f32.  Its
 three-operand contractions are taken in a fixed order (products first,
 then one sum or matmul), so the result does not depend on the order
 ``torch.einsum`` would pick.
+
+Under a `repro_torch.models.actx` model group the ``dinner`` and ``ff``
+leaves are this rank's shards: ``r`` / ``k`` / ``v`` / ``g`` and the decay
+are column-parallel on the rank's ``H / m`` heads (each mixed input
+through ``copy_in``), so the WKV runs on those heads with their rows of
+``bonus_u``; ``w_o`` and ``cm_v`` are row-parallel (``reduce_out``).
+``ln_x`` normalizes over the whole ``d``: the rank's slice of it (and of
+``decay_bias``, both sharded on ``embed`` alike) is used on its heads, and
+its sum of squares is summed over the group both ways.  ``cm_r`` is
+column-parallel, but its sigmoid gates ``cm_v``'s whole output, so the
+gate is gathered whole.  The norms and mixes of the whole ``d`` (``ln1``,
+``ln2``, ``mix``, ``cm_mix``) are gathered leaves.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import actx
 from repro_torch.models.layers import rmsnorm
 from repro_torch.models.params import ParamDef
 
@@ -112,17 +125,20 @@ def rwkv6_block(params, cfg, x, state=None):
     """Time-mix + channel-mix, with the block's own pre-norms: returns
     ``(residual delta, new state)`` (the caller adds the delta to x).
     ``state``: None (zeros) or ``{"tm_last", "cm_last", "wkv"}``, all
-    f32."""
+    f32.  Under a model group the heads are the rank's share."""
     b, t, d = x.shape
     dt = x.dtype
-    h, n = cfg.ssm_heads, cfg.ssm_state
+    n = cfg.ssm_state
+    dl = params["w_r"].shape[1]                          # H n, or H / m n
+    h = dl // n
 
     a = rmsnorm(x, params["ln1"], cfg.norm_eps)
     tm_last = (torch.zeros((b, 1, d), dtype=torch.float32, device=x.device)
                if state is None else state["tm_last"])
     shifted = _token_shift(a, tm_last)
     mix = params["mix"].to(dt)
-    xr, xk, xv, xw, xg = (a + mix[i][None, None] * (shifted - a)
+    xr, xk, xv, xw, xg = (actx.copy_in(a + mix[i][None, None]
+                                       * (shifted - a))
                           for i in range(len(MIX_KEYS)))
     r = (xr @ params["w_r"].to(dt)).reshape(b, t, h, n)
     k = (xk @ params["w_k"].to(dt)).reshape(b, t, h, n)
@@ -134,8 +150,9 @@ def rwkv6_block(params, cfg, x, state=None):
 
     wkv0 = None if state is None else state["wkv"]
     o, new_wkv = wkv6_chunked(r, k, v, log_w, params["bonus_u"], wkv0)
-    o = rmsnorm(o.reshape(b, t, d), params["ln_x"], cfg.norm_eps) * g
-    tm_out = o @ params["w_o"].to(dt)
+    o = rmsnorm(o.reshape(b, t, dl), params["ln_x"], cfg.norm_eps,
+                sharded=True) * g
+    tm_out = actx.reduce_out(o @ params["w_o"].to(dt))
 
     x2 = x + tm_out
     b2 = rmsnorm(x2, params["ln2"], cfg.norm_eps)
@@ -145,9 +162,10 @@ def rwkv6_block(params, cfg, x, state=None):
     cmix = params["cm_mix"].to(dt)
     xk2 = b2 + cmix[0][None, None] * (shifted2 - b2)
     xr2 = b2 + cmix[1][None, None] * (shifted2 - b2)
-    kk = torch.square(F.relu(xk2 @ params["cm_k"].to(dt)))
-    cm_out = torch.sigmoid(xr2 @ params["cm_r"].to(dt)) * (
-        kk @ params["cm_v"].to(dt))
+    kk = torch.square(F.relu(actx.copy_in(xk2) @ params["cm_k"].to(dt)))
+    gate = actx.gather_leaf(
+        torch.sigmoid(actx.copy_in(xr2) @ params["cm_r"].to(dt)), 2)
+    cm_out = gate * actx.reduce_out(kk @ params["cm_v"].to(dt))
 
     new_state = {"tm_last": a[:, -1:].float(), "cm_last": b2[:, -1:].float(),
                  "wkv": new_wkv}

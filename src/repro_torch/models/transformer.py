@@ -27,21 +27,29 @@ the layer's activations are recomputed in backward instead of kept for
 all 24 layers.  The slices are taken outside the checkpointed function,
 so each sink row is written once, by the recomputed graph's backward.
 
-Tensor parallelism (``--model-shards m``, the attention stacks without
-experts): under a `repro_torch.models.actx` model group each rank holds
-its model shard of every leaf, by the reference's spec
-(:func:`tp_specs`), and runs the Megatron layout.  The attention runs the
-rank's ``H / m`` query heads and ``K / m`` kv heads, ``wo`` row-parallel;
-the MLP is column-parallel on ``ff`` and row-parallel on ``w_down``; the
+Tensor parallelism (``--model-shards m``): under a
+`repro_torch.models.actx` model group each rank holds its model shard of
+every leaf, by the reference's spec (:func:`tp_specs`), and runs the
+Megatron layout.  The attention runs the rank's ``H / m`` query heads and
+``K / m`` kv heads, ``wo`` row-parallel; the MLP is column-parallel on
+``ff`` and row-parallel on ``w_down``; the MoE runs the rank's ``E / m``
+experts (`repro_torch.models.moe`); Mamba2 and RWKV6 run the rank's ``H /
+m`` heads (`repro_torch.models.mamba2`, `repro_torch.models.rwkv6`), and
+zamba2's shared block runs as the attention stack's layers do.  The
 embedding is a vocab-parallel lookup and the LM head gives logits sharded
 on the vocab.  A leaf sharded on a dim its layer does not split (the norm
-scales on ``embed``; ``embed`` and ``lm_head`` on ``embed`` when the vocab
-does not divide ``m``) is gathered whole; ``q_norm`` and ``k_norm``, which
-no spec shards, see head-local activations only, so their gradients are
-summed over the group.  The MoE, Mamba2 and RWKV6 stacks refuse ``m > 1``
-(:func:`check_tensor_parallel`).
+scales on ``embed``, the router, RWKV6's mixes; ``embed`` and ``lm_head``
+on ``embed`` when the vocab does not divide ``m``) is gathered whole; a
+replicated leaf that only head-local activations use (``q_norm``,
+``k_norm``, RWKV6's ``bonus_u``, of which the rank takes its heads' rows)
+goes through ``copy_in``, so that its partial gradients are summed over
+the group.  Each family's split leaves are in :data:`_TP`; an ``m`` at
+which the reference's spec would put one of them on another dim is
+refused (:func:`check_tensor_parallel`).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -101,13 +109,37 @@ def model_defs(cfg: ArchConfig) -> dict:
     return defs
 
 
-# the per-layer dim each split leaf of the attention stack must be sharded
-# on (the reference's attn_q / attn_kv / ffn_hidden points), and the
-# replicated leaves that only head-local activations use
-_SPLIT = {("attn", "wq"): 1, ("attn", "wk"): 1, ("attn", "wv"): 1,
-          ("attn", "wo"): 0, ("mlp", "w_gate"): 1, ("mlp", "w_up"): 1,
-          ("mlp", "w_down"): 0}
-_HEAD_LOCAL = {("attn", "q_norm"), ("attn", "k_norm")}
+# per family: the per-layer dim each split leaf must be sharded on (the
+# reference's attn_q / attn_kv, ffn_hidden, moe_expert and ssm points;
+# RWKV6's ln_x and decay_bias are used on the rank's heads, their embed
+# slice), and the replicated leaves that only head-local activations use,
+# with the dim of which the rank takes its heads' share (None: whole)
+_ATTN = {("attn", "wq"): 1, ("attn", "wk"): 1, ("attn", "wv"): 1,
+         ("attn", "wo"): 0}
+_MLP = {("mlp", "w_gate"): 1, ("mlp", "w_up"): 1, ("mlp", "w_down"): 0}
+_QK_NORMS = {("attn", "q_norm"): None, ("attn", "k_norm"): None}
+_TP = {
+    "attention": ({**_ATTN, **_MLP}, _QK_NORMS),
+    "MoE": ({**_ATTN, ("moe", "w_gate"): 0, ("moe", "w_up"): 0,
+             ("moe", "w_down"): 0}, _QK_NORMS),
+    "Mamba2": ({("mamba", k): dim for k, dim in (
+        ("z_proj", 1), ("x_proj", 1), ("dt_proj", 1), ("conv_x_w", 1),
+        ("conv_x_b", 0), ("a_log", 0), ("dt_bias", 0), ("d_skip", 0),
+        ("gate_norm", 0), ("out_proj", 0))}, {}),
+    "RWKV6": ({(k,): dim for k, dim in (
+        ("w_r", 1), ("w_k", 1), ("w_v", 1), ("w_g", 1), ("w_decay", 1),
+        ("cm_r", 1), ("cm_k", 1), ("w_o", 0), ("cm_v", 0), ("ln_x", 0),
+        ("decay_bias", 0))}, {("bonus_u",): 0}),
+}
+
+
+def _family(cfg: ArchConfig) -> str:
+    """The key of ``cfg``'s layers in :data:`_TP`."""
+    if cfg.block_type == BLOCK_MAMBA2:
+        return "Mamba2"
+    if cfg.block_type == BLOCK_RWKV6:
+        return "RWKV6"
+    return "MoE" if cfg.is_moe else "attention"
 
 
 def tp_specs(cfg: ArchConfig, m: int):
@@ -116,39 +148,59 @@ def tp_specs(cfg: ArchConfig, m: int):
 
 
 def check_tensor_parallel(cfg: ArchConfig, m: int) -> None:
-    """Raise ``ValueError`` unless ``cfg`` runs over ``m`` model shards."""
+    """Raise ``ValueError`` unless ``cfg`` runs over ``m`` model shards:
+    every split leaf of its family (and of zamba2's shared block) must be
+    sharded on its dim by the reference's spec, and RWKV6's heads must not
+    be cut (its ``dinner`` is ``ssm_heads`` x ``ssm_state``).  The message
+    names each such dim that ``m`` does not divide, and the leaves that
+    the reference would shard on another dim instead."""
     if m <= 1:
         return
-    family = ("MoE" if cfg.is_moe else "Mamba2" if cfg.block_type ==
-              BLOCK_MAMBA2 else "RWKV6" if cfg.block_type == BLOCK_RWKV6
-              else None)
-    if family is not None:
-        raise ValueError(f"{cfg.name}: --model-shards {m} is not ported for "
-                         f"the {family} stack (only the attention stacks "
-                         "without experts run tensor-parallel)")
-    layer = tp_specs(cfg, m)["layers"]
-    for (block, name), dim in _SPLIT.items():
-        if actx.model_dim(layer[block][name]) != dim + 1:
-            raise ValueError(
-                f"{cfg.name}: --model-shards {m} must divide n_heads "
-                f"{cfg.n_heads}, n_kv_heads {cfg.n_kv_heads} and d_ff "
-                f"{cfg.d_ff}")
+    defs, specs = model_defs(cfg), tp_specs(cfg, m)
+    blocks = [("layers", _TP[_family(cfg)][0], 1)]
+    if cfg.shared_attn_every:
+        blocks.append(("shared_attn", _TP["attention"][0], 0))
+    dims, fell = {}, []
+    for block, split, lead in blocks:
+        for key, dim in split.items():
+            spec = functools.reduce(dict.__getitem__, key, specs[block])
+            if actx.model_dim(spec) != dim + lead:
+                d = functools.reduce(dict.__getitem__, key, defs[block])
+                dims[d.axes[dim + lead]] = d.shape[dim + lead]
+                fell.append("/".join((block, *key)))
+    if cfg.block_type == BLOCK_RWKV6 and cfg.ssm_heads % m:
+        dims["heads"] = cfg.ssm_heads
+    if dims:
+        raise ValueError(
+            f"{cfg.name}: --model-shards {m} must divide "
+            + ", ".join(f"{axis} {n}" for axis, n in dims.items())
+            + (f" (the reference would shard {', '.join(fell)} on another "
+               "dim)" if fell else " (it would cut an RWKV6 head)"))
 
 
-def _tp_layer(lp: dict, specs: dict) -> dict:
-    """One layer's leaves as its blocks use them under a model group: the
-    split leaves as they are, the other sharded leaves gathered whole, the
-    head-local replicated leaves behind ``copy_in``."""
+def _tp_layer(lp: dict, specs: dict, family: str, lead: int = 1) -> dict:
+    """One layer's leaves (or zamba2's shared block's, ``lead`` 0: no
+    stacked layers dim) as its blocks use them under a model group: the
+    split leaves of ``family`` as they are, the other sharded leaves
+    gathered whole, the head-local replicated leaves behind ``copy_in``
+    (and cut to the rank's heads where :data:`_TP` names a dim)."""
+    split, local = _TP[family]
+    ctx = actx.current()
     flat, td = T.flatten(lp)
     out = []
     for path, a, spec in zip(T.paths(lp), flat, T.leaves(specs)):
         key, dim = tuple(path.split("/")), actx.model_dim(spec)
-        if key in _SPLIT:
+        if key in split:
             out.append(a)
         elif dim is not None:
-            out.append(actx.gather_leaf(a, dim - 1))   # less the layers dim
-        elif key in _HEAD_LOCAL:
-            out.append(actx.copy_in(a))
+            out.append(actx.gather_leaf(a, dim - lead))
+        elif key in local:
+            a = actx.copy_in(a)
+            cut = local[key]
+            if cut is not None:
+                n = a.shape[cut] // ctx.size
+                a = a.narrow(cut, ctx.rank * n, n)
+            out.append(a)
         else:
             out.append(a)
     return T.unflatten(td, out)
@@ -268,7 +320,7 @@ def attn_stack(cfg: ArchConfig, stacked, x, positions, sinks=None, *,
     specs = tp_specs(cfg, ctx.size)["layers"] if ctx is not None else None
     for i, lp in enumerate(_layer_slices(stacked, cfg.n_layers, sinks)):
         if ctx is not None:
-            lp = _tp_layer(lp, specs)
+            lp = _tp_layer(lp, specs, _family(cfg))
         cache = None if kv_caches is None else (kv_caches[0][i],
                                                 kv_caches[1][i])
         h, kv = attention_block(
@@ -298,15 +350,18 @@ def _shared_attn(cfg: ArchConfig, sp, x, positions, cache=None,
                  cache_index=None):
     """zamba2's shared transformer block (attention over a full causal
     window, then the gated MLP).  Returns (x, kv) as ``attention_block``.
-    The attention runs inside a ``shared_attention`` profiler range."""
+    The attention runs inside a ``shared_attention`` profiler range.
+    Under a model group ``sp`` is :func:`_tp_layer`'s, and the attention
+    and the MLP take their inputs through ``copy_in``."""
     with torch.profiler.record_function("shared_attention"):
-        h, kv = attention_block(sp["attn"], cfg,
-                                rmsnorm(x, sp["ln_attn"], cfg.norm_eps),
-                                positions, window=cfg.sliding_window,
-                                kv_cache=cache, cache_index=cache_index)
+        h, kv = attention_block(
+            sp["attn"], cfg,
+            actx.copy_in(rmsnorm(x, sp["ln_attn"], cfg.norm_eps)),
+            positions, window=cfg.sliding_window, kv_cache=cache,
+            cache_index=cache_index)
     x = x + h
-    return x + mlp_block(sp["mlp"], rmsnorm(x, sp["ln_mlp"],
-                                            cfg.norm_eps)), kv
+    return x + mlp_block(sp["mlp"], actx.copy_in(
+        rmsnorm(x, sp["ln_mlp"], cfg.norm_eps))), kv
 
 
 def _ssm_layer(cfg: ArchConfig, lp, x, st):
@@ -340,18 +395,28 @@ def ssm_stack(cfg: ArchConfig, params, x, positions, sinks=None, *,
     with the prompt's keys and values in its first S positions.  Decode
     (``states`` and ``attn_caches`` given, x (B, 1, d)): both are updated
     in place at layer i / position ``cache_index`` and returned.
-    Otherwise (training forward) returns ``(x, None, None)``."""
+    Otherwise (training forward) returns ``(x, None, None)``.  Under a
+    model group each layer's leaves (and the shared block's, once a
+    forward) go through :func:`_tp_layer` outside the layer's
+    ``checkpoint``, so a recompute gathers no leaf again."""
     every = cfg.shared_attn_every
     n_seg = -(-cfg.n_layers // every) if every else 0
     kvs, sts = attn_caches, states
+    ctx = actx.current()
+    specs = tp_specs(cfg, ctx.size) if ctx is not None else None
+    shared = params.get("shared_attn")
+    if ctx is not None and every:
+        shared = _tp_layer(shared, specs["shared_attn"], "attention", 0)
     for i, lp in enumerate(_layer_slices(params["layers"], cfg.n_layers,
                                          sinks)):
+        if ctx is not None:
+            lp = _tp_layer(lp, specs["layers"], _family(cfg))
         if every and i % every == 0:
             seg = i // every
             cache = None if attn_caches is None else (attn_caches[0][seg],
                                                       attn_caches[1][seg])
-            x, kv = _shared_attn(cfg, params["shared_attn"], x, positions,
-                                 cache, cache_index)
+            x, kv = _shared_attn(cfg, shared, x, positions, cache,
+                                 cache_index)
             if collect_len:
                 if kvs is None:
                     shape = (n_seg, kv[0].shape[0], collect_len,

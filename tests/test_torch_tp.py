@@ -149,19 +149,27 @@ _RUNNER = textwrap.dedent("""
 _COMPARE_RUNNER = textwrap.dedent("""
     import json, sys
     import torch
-    from repro_torch import tree as T
+    from repro_torch.checkpoint import checkpoint_leaves, save_checkpoint
     from repro_torch.configs import get_config
+    from repro_torch.dist.workers import WorkerGroup
     from repro_torch.launch import train
     from repro_torch.models import transformer as TF
-    from repro_torch.models.params import init_params
+    from repro_torch.models.params import init_params, param_specs
     if __name__ == "__main__":
-        argv, out = json.loads(sys.argv[1]), sys.argv[2]
-        init = init_params(TF.model_defs(get_config(argv[argv.index(
-            "--arch") + 1])), torch.Generator().manual_seed(0), "cpu")
+        argv, out, init_dir = json.loads(sys.argv[1]), sys.argv[2], \
+            sys.argv[3]
+        args = train._parse(argv)
+        cfg = get_config(args.arch)
+        defs = TF.model_defs(cfg)
+        params = init_params(defs, torch.Generator().manual_seed(0), "cpu")
+        opt_state, state, _ = train._build(args, cfg, WorkerGroup(
+            args.workers), params, param_specs(defs, {"model": 1}))
+        init = (params, opt_state, state)
+        save_checkpoint(init_dir, 0, init)
         rep = {}
-        train.main(argv, report=rep, compare_to=T.leaves(init))
+        train.main(argv, report=rep, compare_to=checkpoint_leaves(init))
         json.dump({"leaf_max_abs": rep["leaf_max_abs"],
-                   "digests": rep["digests"]}, open(out, "w"))
+                   "leaf_l2": rep["leaf_l2"]}, open(out, "w"))
 """)
 
 # one rank (or, at m = 1, the one process) of the forward and backward
@@ -230,8 +238,9 @@ _REF22 = textwrap.dedent("""
     from repro.models.params import init_params, param_specs
     from repro.optim import momentum
 
-    kind, out, steps = sys.argv[1], sys.argv[2], int(sys.argv[3])
-    cfg = get_config("qwen3-1.7b-smoke")
+    kind, out, steps, arch = sys.argv[1:5]
+    steps = int(steps)
+    cfg = get_config(arch)
     mesh = make_mesh((2, 2), ("data", "model"))
     flags = TF.RunFlags(remat=False)
     defs = TF.model_defs(cfg)
@@ -319,10 +328,11 @@ def _forward_case(tmp, name):
     return d
 
 
-def _port_like(kind, model):
+def _port_like(kind, model, arch=ARCH):
     """The port's whole-layout (params, opt_state, state) of the launcher's
-    two-worker ``kind`` run at ``model`` shards (values unused)."""
-    cfg = get_config(ARCH)
+    two-worker ``kind`` run of ``arch`` at ``model`` shards (values
+    unused)."""
+    cfg = get_config(arch)
     defs = TF.model_defs(cfg)
     specs = param_specs(defs, {"model": model})
     params = init_params(defs, torch.Generator().manual_seed(0), "cpu")
@@ -342,7 +352,8 @@ def _reference_case(tmp, kind):
     """The reference's (data 2, model 2) run, then the port resumed from
     its step-0 checkpoint under 4 ranks of 2 model shards."""
     ref, port = tmp / f"ref_{kind}", tmp / f"port_{kind}"
-    _run([sys.executable, "-c", _REF22, kind, str(ref), str(REF_STEPS)], tmp)
+    _run([sys.executable, "-c", _REF22, kind, str(ref), str(REF_STEPS),
+          ARCH], tmp)
     # the port's sidecar for the reference's arrays: the leaves match in
     # order, dtype and shape (tests/test_torch_ckpt.py)
     path = save_checkpoint(str(port), 0, _port_like(kind, 2))
@@ -396,7 +407,8 @@ def runs(tmp_path_factory):
         compare_f = pool.submit(_run, [sys.executable,
                                        str(compare / "run.py"),
                                        json.dumps(compare_argv),
-                                       str(compare / "out.json")], tmp)
+                                       str(compare / "out.json"),
+                                       str(compare / "init")], tmp)
         fwd_f = {k: pool.submit(_forward_case, tmp, k) for k in FWD_CASES}
         for f in futures:
             f.result()
@@ -590,19 +602,31 @@ def test_four_ranks_equal_two_bitwise(runs, name):
 
 
 def test_rank_zero_compares_the_whole_final_params(runs):
-    # rank 0 gathers each final leaf whole and reports its largest
-    # difference from the leaves it was given (here the initial params):
-    # exactly that of the run's own final checkpoint, leaf by leaf
+    # rank 0 gathers each final leaf of the params, the optimizer state and
+    # the sync state whole and reports its largest difference from the
+    # leaves it was given (here the run's initial state, in the one-process
+    # layout), and the difference's norm: exactly that of the run's own
+    # final checkpoint, leaf by leaf (the norm within f32 summation)
     compare = runs["compare"]
     out = json.loads((compare / "out.json").read_text())
-    assert out["digests"] is None
-    init = init_params(TF.model_defs(get_config(ARCH)),
-                       torch.Generator().manual_seed(0), "cpu")
-    assert list(out["leaf_max_abs"]) == T.paths(init)
-    with np.load(compare / "ckpt" / f"step_{STEPS:08d}.npz") as final:
-        for i, (path, x) in enumerate(zip(T.paths(init), T.leaves(init))):
-            want = float(np.abs(final[str(i)] - x.numpy()).max())
-            assert want > 0 and out["leaf_max_abs"][path] == want, path
+    n_params = len(T.leaves(TF.model_defs(get_config(ARCH))))
+    with np.load(compare / "ckpt" / f"step_{STEPS:08d}.npz") as final, \
+            np.load(compare / "init" / "step_00000000.npz") as init:
+        assert sorted(final.files) == sorted(init.files)
+        assert list(out["leaf_max_abs"]) == [str(i) for i in
+                                              range(len(init.files))]
+        assert len(init.files) > n_params
+        for key, got in out["leaf_max_abs"].items():
+            a, b = final[key], init[key]
+            assert a.dtype == b.dtype and a.dtype.kind in "fi", key
+            diff = a - b if a.dtype.kind == "f" \
+                else a.astype(np.int64) - b
+            want = float(np.abs(diff).max()) if diff.size else 0.0
+            assert got == want, key
+            assert want > 0 or int(key) >= n_params, key
+            np.testing.assert_allclose(
+                out["leaf_l2"][key], np.linalg.norm(diff.astype(np.float64)),
+                rtol=1e-5, err_msg=key)
 
 
 def test_fused_walks_the_densified_trajectory(runs):
@@ -708,23 +732,12 @@ def test_model_shards_must_divide_the_ranks(no_rank):
         train.main(BASE + ["--sync", "topk_ef", "--steps", "1"])
 
 
-@pytest.mark.parametrize("arch,family", [
-    ("mixtral-8x7b-smoke", "MoE"), ("zamba2-7b-smoke", "Mamba2"),
-    ("rwkv6-1.6b-smoke", "RWKV6")])
-def test_families_outside_the_slice_refuse_model_shards(no_rank, arch,
-                                                        family):
-    argv = BASE + ["--sync", "topk_ef", "--steps", "1", "--ranks", "2"]
-    argv[argv.index(ARCH)] = arch
-    with pytest.raises(ValueError, match=f"the {family} stack"):
-        train.main(argv)
-
-
 def test_heads_that_do_not_divide_are_refused(no_rank):
     # qwen3-smoke has 4 heads: at 8 model shards wq falls back to embed
     argv = BASE + ["--sync", "topk_ef", "--steps", "1", "--ranks", "8"]
     argv[argv.index("--workers") + 1] = "1"
     argv[argv.index("--model-shards") + 1] = "8"
-    with pytest.raises(ValueError, match="must divide n_heads"):
+    with pytest.raises(ValueError, match="must divide heads 4"):
         train.main(argv)
 
 
