@@ -268,7 +268,26 @@ Phases (any failure exits non-zero):
     (rank 0 compares each gathered leaf with the oracle's, shared by IPC
     handle) within ``FAMILY_LEAF_REL`` a leaf and ``FAMILY_MODEL_REL`` over
     the model, as a share of the oracle's own move from the params both
-    start at; each summed peak under 0.90 of the card.
+    start at; each summed peak under 0.90 of the card;
+39. the cluster model and the time-to-loss co-simulation: K1 and K8 at the
+    co-simulation's EF rows (4, 32) against their plain versions; the
+    three cluster presets through ``repro_torch.launch.cosim.main`` at the
+    CLI's defaults (p 4, 600 steps, flops 4e8, alpha 0.05, target 0.01,
+    seed 0; the first with ``--out``) on the card and on the CPU, both on
+    gradient noise drawn once on the CPU: every candidate's tau table,
+    finishes and learner clock bitwise, steps, times, tau histograms,
+    drops and winners equal, losses within ``COSIM_LOSS_ATOL +
+    COSIM_LOSS_RTOL`` of the CPU's over the first ``PARITY_STEPS`` steps
+    (every crossing lies there and clears the bound); exactly 600 K1 and
+    600 K8 launches a preset (the ``topk_ef`` and ``onebit_ef``
+    candidates, one a step) and no other kernel; each event loop's
+    seconds on both and the device-busy share of a profiled card run
+    (``straggler_heavy``, 100 steps); then
+    the ring checker (``repro_torch.analysis.rings.run``) with its layer
+    3 (the port's ring ops, ``delivery_tensors`` under ``vmap`` and
+    ``ParamReplica``) on the card: no findings and the CPU run's
+    statistics; and a planted fault, rings of capacity ``tau_max`` (one
+    slot short), which the prover and the card's ring ops must both flag.
 
 Phase 1 also logs the free disk of the checkpoint directory's filesystem
 and the free host memory.  The last three lines of standard output are the
@@ -277,7 +296,8 @@ kernels' JSON record (K1, K2 and K4 also carry ``rwkv6_launches``,
 rank's count, by phase 36's run), ``tp_launches`` (each rank's, by phase
 37's), ``tp_shapes`` (phase 37's times at each geometry),
 ``families_tp_launches`` and ``families_tp_shapes`` (phase 38's; K10 too),
-K1 and K2 ``kill_resume_launches``, K10 ``zamba2_launches``), the card's
+K1 and K2 ``kill_resume_launches``, K10 ``zamba2_launches``, K1 and K8
+``cosim_launches``, phase 39's over the three presets), the card's
 name and power limit, and the result ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -4075,6 +4095,251 @@ def run_family_tp(torch, kernels, records) -> None:
             drop_oracle(torch, oracle)
 
 
+# ---------------------------------------------------------------------------
+# phase 39: the cluster model, the time-to-loss co-simulation and the
+# delivery-ring model checker
+# ---------------------------------------------------------------------------
+
+COSIM_PRESETS = ("uniform", "straggler_heavy", "preemptible")
+COSIM_P, COSIM_STEPS, COSIM_DIM = 4, 600, 32      # the CLI's defaults
+COSIM_RATIO = 1 / 8                 # cluster.cosim's top-k EF ratio
+# card against CPU on the same draws: every recorded loss within
+# COSIM_LOSS_ATOL + COSIM_LOSS_RTOL |CPU| over the first PARITY_STEPS
+# steps, where every crossing lies (tests/test_torch_cluster.py's bound
+# against the reference: the two sum the quadratic's products in other
+# orders); later the EF runs drift chaotically (one-bit from step 110
+# against the reference on the CPU, top-k from step 468), so the rest of
+# the run is logged only
+COSIM_LOSS_RTOL, COSIM_LOSS_ATOL = 1e-4, 1e-6
+# the kernels of the EF candidates (cluster.cosim.DEFAULT_CANDIDATES'
+# topk_ef and onebit_ef): one launch a step each, per preset
+COSIM_EF_KERNELS = ("topk_ef", "onebit_ef")
+
+
+def check_cosim_kernels(torch, dev, gen) -> None:
+    """K1 and K8 at the co-simulation's EF rows, (B p, d) = (4, 32), k = 4,
+    against their plain versions on the same card tensors: K1 bitwise in
+    the documented order, K8 packed bitwise and within ONEBIT_TOL."""
+    from repro_torch.kernels.onebit_ef.kernel import onebit_ef
+    from repro_torch.kernels.onebit_ef.ref import onebit_ef_plain
+    from repro_torch.kernels.topk_ef.kernel import topk_ef
+    from repro_torch.kernels.topk_ef.ops import topk_k
+    from repro_torch.kernels.topk_ef.ref import topk_ef_plain
+    m, r = COSIM_P, COSIM_DIM
+    k = topk_k(r, COSIM_RATIO)
+    g = 0.05 * torch.randn((m, r), generator=gen, device=dev)
+    e = 0.01 * torch.randn((m, r), generator=gen, device=dev)
+    order, same_e, repeat, err = _topk_check(torch, topk_ef, topk_ef_plain,
+                                             g, e, k)
+    got, want, again = onebit_ef(g, e), onebit_ef_plain(g, e), onebit_ef(g, e)
+    torch.cuda.synchronize()
+    oerr, close, same = compare(torch, got, want, again, ONEBIT_TOL)
+    packed = torch.equal(got[0], want[0])
+    log(f"check cosim rows ({m}, {r}): topk_ef k={k} picks bitwise in the "
+        f"documented order {order}, new_err bitwise {same_e}, run to run "
+        f"{repeat}, max_abs_err {err}; onebit_ef packed bitwise {packed}, "
+        f"means/new_err close {close}, run to run {same}, max_abs_err "
+        f"{oerr}")
+    require(order and same_e and repeat, "topk_ef != plain at the cosim rows")
+    require(packed and close and same, "onebit_ef != plain at the cosim rows")
+    floor = launch_floor_ms(torch, dev)
+    for name, fn, plain, nbytes in (
+            ("topk_ef", lambda: topk_ef(g, e, k),
+             lambda: topk_ef_plain(g, e, k), 12 * m * r + 8 * m * k),
+            ("onebit_ef", lambda: onebit_ef(g, e),
+             lambda: onebit_ef_plain(g, e),
+             12 * m * r + m * ((r + 7) // 8) + 8 * m)):
+        ms, call = device_ms(torch, fn)
+        pms, _ = device_ms(torch, plain)
+        log(f"time {name} cosim rows ({m}, {r}): kernel {ms:.4f} ms on the "
+            f"device ({call:.4f} ms a call from the host), plain {pms:.4f} "
+            f"ms, bound {bound_ms(nbytes):.3e} ms ({nbytes} bytes), launch "
+            f"floor {floor:.4f} ms")
+
+
+def profile_cosim(torch, argv, draws) -> None:
+    """One card co-simulation under torch.profiler (the CLI's argv, its
+    draws): the device-busy share of its wall and the device time by
+    kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import cosim as cli
+    with contextlib.redirect_stdout(io.StringIO()):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            cli.main(argv, draws=draws)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    kernel_type = torch.autograd.DeviceType.CUDA
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == kernel_type and e.self_device_time_total > 0]
+    busy_us = sum(r[1] for r in rows)
+    n_kernels = sum(r[2] for r in rows)
+    log(f"profile cosim {' '.join(argv)}: wall {wall * 1e3:.2f} ms "
+        f"(profiler on), device kernels {busy_us / 1e3:.3f} ms (busy "
+        f"{busy_us / 1e3 / (wall * 1e3):.4f} of wall), {n_kernels} kernels")
+    for key, us, count in sorted(rows, key=lambda r: -r[1])[:6]:
+        log(f"  {us / 1e3:9.4f} ms  x{count:<6d} {key[:90]}")
+
+
+def _cosim_losses(results) -> dict:
+    """candidate -> its recorded losses (seed 0) as f64."""
+    import numpy as np
+    return {r.candidate: np.asarray(r.losses[0], np.float64)
+            for r in results}
+
+
+def run_cosim(torch, kernels, records) -> None:
+    """The three presets through ``launch/cosim.main`` at the CLI's
+    defaults on the card and on the CPU, on the same CPU-drawn gradient
+    noise: tau tables, finishes and closes bitwise, steps, times and
+    winners equal, losses within the stated bound over PARITY_STEPS; exact
+    K1 and K8 launch counts (counters zeroed just before each card run);
+    then the ring checker with its layer 3 on the card (no findings, the
+    CPU run's statistics) and a planted capacity fault it must find."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.analysis import rings
+    from repro_torch.core.problems import Quadratic
+    from repro_torch.core.sim_ref import default_draws
+    from repro_torch.launch import cosim as cli
+
+    t_phase = time.perf_counter()
+    quad = Quadratic(dim=COSIM_DIM, cond=8.0, sigma=0.4, seed=0,
+                     device="cpu")                # cluster.cosim's problem
+    draws_cpu = default_draws(quad, 0, COSIM_STEPS, COSIM_P)
+    target = 0.01 * float(quad.loss(torch.zeros(COSIM_DIM)))
+    draws = lambda ip, p, s: draws_cpu            # noqa: E731 (seed 0 only)
+    horizon = PARITY_STEPS // 2                   # record_every 2
+    launches = {k.name: 0 for k in kernels}
+    tmp = tempfile.mkdtemp(prefix="cosim_")
+    try:
+        for i, name in enumerate(COSIM_PRESETS):
+            argv = ["--cluster", name]
+            out = [] if i else ["--out", os.path.join(tmp, f"{name}.json")]
+            runs = {}
+            for device in ("cpu", "cuda"):
+                rep = {}
+                for k in kernels:
+                    k.launches = 0
+                text = io.StringIO()
+                with contextlib.redirect_stdout(text):
+                    t0 = time.perf_counter()
+                    cli.main(argv + ["--device", device]
+                             + (out if device == "cuda" else []),
+                             draws=draws, report=rep)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                counts = {k.name: k.launches for k in kernels}
+                if device == "cuda":
+                    for line in text.getvalue().splitlines():
+                        log(f"  cosim {name}: {line}")
+                    for key, v in counts.items():
+                        launches[key] += v
+                else:
+                    require(not any(counts.values()),
+                            f"cosim {name}: a kernel launched on the CPU")
+                runs[device] = (rep, _cosim_losses(rep["results"]), wall)
+            (cpu, cpu_loss, cpu_wall), (gpu, gpu_loss, gpu_wall) = \
+                runs["cpu"], runs["cuda"]
+            log(f"cosim {name}: card {gpu_wall:.2f} s, CPU {cpu_wall:.2f} s "
+                f"(each with its five event loops and the grid); event "
+                f"loops card / CPU s: " + ", ".join(
+                    f"{c} {gpu['runs'][c].loop_s:.4f} / "
+                    f"{cpu['runs'][c].loop_s:.4f}" for c in gpu["runs"]))
+            for c, run in gpu["runs"].items():
+                want = cpu["runs"][c]
+                require(run.device.startswith("cuda") and want.device == "cpu",
+                        f"cosim {name} {c}: the loop ran on the wrong device")
+                for f in ("taus", "closes", "finishes"):
+                    require(np.array_equal(getattr(run, f), getattr(want, f)),
+                            f"cosim {name} {c}: card {f} != CPU {f}")
+            fields = lambda r: (r.candidate, r.steps_to_loss,  # noqa: E731
+                                r.time_to_loss, r.step_s, r.tau_histogram,
+                                r.dropped)
+            require([fields(r) for r in gpu["results"]]
+                    == [fields(r) for r in cpu["results"]],
+                    f"cosim {name}: card results != CPU results")
+            require(gpu["winners"] == cpu["winners"],
+                    f"cosim {name}: card winners != CPU winners")
+            for c, want in cpu_loss.items():
+                got = gpu_loss[c]
+                diff = np.abs(got - want)
+                lim = COSIM_LOSS_ATOL + COSIM_LOSS_RTOL * np.abs(want)
+                res = next(r for r in cpu["results"] if r.candidate == c)
+                if np.isfinite(res.steps_to_loss):
+                    # the crossing lies in the horizon and clears the bound
+                    cross = int(res.steps_to_loss) // 2
+                    near = want[max(cross - 1, 0):cross + 1]
+                    require(cross < horizon and bool(np.all(
+                        np.abs(near - target) > COSIM_LOSS_ATOL
+                        + COSIM_LOSS_RTOL * target)),
+                        f"cosim {name} {c}: the loss crossing does not "
+                        f"clear the card-CPU bound")
+                log(f"  cosim {name} {c}: steps {res.steps_to_loss} time "
+                    f"{res.time_to_loss:.4f} s, loss |card - CPU| "
+                    f"{diff[:horizon].max():.3e} over {PARITY_STEPS} steps "
+                    f"(limit {lim[:horizon].min():.1e}-"
+                    f"{lim[:horizon].max():.1e}), {diff.max():.3e} over "
+                    f"the run")
+                require(bool(np.all(diff[:horizon] <= lim[:horizon])),
+                        f"cosim {name} {c}: card losses off the CPU's")
+            log(f"cosim {name}: winners {json.dumps(gpu['winners'])}")
+            if not i:
+                with open(out[1]) as fh:
+                    payload = json.load(fh)
+                require(payload["winners"] == gpu["winners"]
+                        and len(payload["candidates"]) == 5,
+                        "cosim --out JSON")
+        want = {k: COSIM_STEPS * len(COSIM_PRESETS) if k in
+                COSIM_EF_KERNELS else 0 for k in launches}
+        log(f"cosim launches {json.dumps(launches)}")
+        require(launches == want, f"cosim launches {launches} != {want}")
+        for k, n in launches.items():
+            if n:
+                records[k]["cosim_launches"] = n
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # profiled at 100 steps: the profiler's tables of a 600-step run take
+    # about 30 s to build
+    profile_cosim(torch, ["--cluster", "straggler_heavy", "--device",
+                          "cuda", "--steps", "100"],
+                  lambda ip, p, s: draws_cpu[:100])
+
+    # the ring checker: layer 3 on the card, then against its CPU run
+    t0 = time.perf_counter()
+    rep = rings.run(device="cuda")
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_rep = rings.run(device="cpu")
+    t_cpu = time.perf_counter() - t0
+    log(f"rings: card {t_card:.2f} s, CPU {t_cpu:.2f} s; findings "
+        f"{[str(f) for f in rep.findings]}; stats "
+        f"{json.dumps(rep.info['rings'])}")
+    require(rep.findings == [] and cpu_rep.findings == [],
+            "rings: the checker found a fault in the ring code")
+    require(rep.info == cpu_rep.info, "rings: card stats != CPU stats")
+    # the planted fault: rings of capacity tau_max, one slot short
+    for tau_max in (1, 2, 3):
+        h = 2 * (tau_max + 1)
+        taus = rings.enumerate_schedules(tau_max, h, crashes=False)
+        proved = rings.prove_ring_schedules(taus, tau_max, "planted")
+        truth = rings.check_ground_truth(taus[:, :, 0], tau_max, "planted",
+                                         device="cuda")
+        log(f"rings planted capacity {tau_max} (tau_max {tau_max}): "
+            f"{[str(f) for f in proved.findings + truth]}")
+        require(any(f.rule == "slot-alias" for f in proved.findings),
+                f"rings: no aliasing found at capacity {tau_max}")
+        require([f.rule for f in truth] == ["torch-divergence"],
+                f"rings: the card's ring ops at capacity {tau_max} did not "
+                f"diverge from the delivery law")
+    log(f"phase 39: wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4278,6 +4543,14 @@ def main() -> int:
     check_family_tp_kernels(torch, dev, gen, records)
     check_family_grads(torch)
     run_family_tp(torch, all_kernels(), records)
+
+    # the cluster model and the time-to-loss co-simulation (K1 and K8 on
+    # the EF candidates' rows), every kernel's counter zeroed just before
+    # each card run, then the ring checker with its layer 3 on the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_cosim_kernels(torch, dev, gen)
+    run_cosim(torch, all_kernels(), records)
     log(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -4289,7 +4562,7 @@ def main() -> int:
     extra = ("sector_bound_ms", "rwkv6_launches", "moonshot_launches",
              "zamba2_launches", "kill_resume_launches", "ranks_launches",
              "tp_launches", "tp_shapes", "families_tp_launches",
-             "families_tp_shapes")
+             "families_tp_shapes", "cosim_launches")
     line = [{k: records[kern.name][k] for k in keys
              + tuple(k for k in extra if k in records[kern.name])}
             for kern in all_kernels()]

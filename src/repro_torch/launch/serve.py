@@ -28,7 +28,8 @@ the dense legacy loop or the continuous-batching engine.
 f32); prompts come from ``np.random.default_rng(--seed)``.  Both engines
 keep every step's tokens on the device and fetch them once at the end.
 ``--temperature/--top-k`` switch both from greedy to sampled decoding.
-``--devices > 1`` is not ported yet and raises.
+``--devices > 1`` is not ported and raises: the reference only replicates
+its page pool over forced XLA host devices.
 
 ``--fault-plan`` (continuous engine; a path or inline JSON,
 `repro_torch.faults.FaultPlan`) drives the engine's fault paths through
@@ -65,7 +66,8 @@ def _parse(argv=None):
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--devices", type=int, default=0,
-                    help="cards to shard over (not ported: must be <= 1)")
+                    help="the reference's forced host devices (not "
+                         "ported: must be <= 1)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--fault-plan", default="",
@@ -175,7 +177,10 @@ def main(argv=None, *, cfg=None) -> dict:
     args = _parse(argv)
     if args.devices > 1:
         raise NotImplementedError(
-            "--devices > 1: sharded serving is not ported yet (one card)")
+            "--devices > 1 is not ported: the reference forces N XLA host "
+            "devices and only replicates the page pool over them (its "
+            "model axis is 1, so paged_cache_specs shards nothing); one "
+            "torch process has no counterpart of that emulation")
     import torch
 
     from repro_torch.configs import get_config

@@ -7,9 +7,9 @@ The trainer *publishes* each new parameter version into a ring of capacity
 ever holds the last ``tau_serve + 1`` versions, and `refresh` clamps the
 serving version into that window, so ``staleness <= tau_serve`` is an
 invariant.  Which version inside the window is served comes from the
-oblivious staleness schedules of `delivery.make_tau_schedule` (DROPPED
-means the refresh was missed: maximal allowed lag).  Each ring keeps its
-leaf's dtype.
+oblivious staleness schedules of `delivery.make_tau_schedule`, or from an
+explicit per-refresh trace ``lags`` (DROPPED means the refresh was missed:
+maximal allowed lag).  Each ring keeps its leaf's dtype.
 """
 from __future__ import annotations
 
@@ -30,7 +30,11 @@ class ParamReplica:
     """Version ring of parameter snapshots with a hard staleness cap."""
 
     def __init__(self, params, tau_serve: int, *, schedule: str = "uniform",
-                 horizon: int = 1024, seed: int = 0):
+                 horizon: int = 1024, seed: int = 0, lags=None):
+        """``lags`` (optional int sequence) overrides the named schedule
+        with an explicit per-refresh lag trace, each in ``[0, tau_serve]``
+        or DROPPED; `repro_torch.analysis.rings` drives its enumerated
+        schedules through the replica with it."""
         if tau_serve < 0:
             raise ValueError(f"tau_serve must be >= 0, got {tau_serve}")
         leaves, self._treedef = T.flatten(params)
@@ -44,7 +48,13 @@ class ParamReplica:
                                    0, leaves)
         self.latest_version = 0
         self.serving_version = 0
-        lags = make_tau_schedule(schedule, 1, horizon, tau_serve, seed)[:, 0]
+        if lags is None:
+            lags = make_tau_schedule(schedule, 1, horizon, tau_serve,
+                                     seed)[:, 0]
+        lags = np.asarray(lags, np.int64)
+        if lags.size == 0 or np.any((lags != DROPPED)
+                                    & ((lags < 0) | (lags > tau_serve))):
+            raise ValueError(f"lags must be in [0, {tau_serve}] or DROPPED")
         # DROPPED refresh = the replica missed the round: maximal legal lag
         self._lags = np.where(lags == DROPPED, tau_serve, lags)
         self._refreshes = 0
