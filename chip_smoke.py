@@ -259,8 +259,8 @@ Phases (any failure exits non-zero):
     2 --dist-backend gloo`` on cuda:0 (``FAMILY_TP``): moonshot-v1-16b-a3b
     cut to 1 of 48 layers on ``--ranks 2`` (one data rank of both
     workers), 4 async top-k steps at tau_max 1 and 2 ``topk_ef`` steps;
-    zamba2-7b cut to 3 of 81 layers (the shared block once) and rwkv6-1.6b
-    cut to 6 of 24 on ``--ranks 4`` (2 data x 2 model), 4 async top-k
+    zamba2-7b cut to 1 of 81 layers (the shared block once) and rwkv6-1.6b
+    cut to 2 of 24 on ``--ranks 4`` (2 data x 2 model), 4 async top-k
     steps at tau_max 2; before each, the one-process oracle with the
     model-2 specs, as phase 37's; exact launch counts per rank and in the
     oracle (K10 once a Mamba2 layer a local worker a step); the ranks'
@@ -287,7 +287,29 @@ Phases (any failure exits non-zero):
     3 (the port's ring ops, ``delivery_tensors`` under ``vmap`` and
     ``ParamReplica``) on the card: no findings and the CPU run's
     statistics; and a planted fault, rings of capacity ``tau_max`` (one
-    slot short), which the prover and the card's ring ops must both flag.
+    slot short), which the prover and the card's ring ops must both flag;
+40. the analysis CLI on the card: ``python -m repro_torch.analysis --all
+    --device cuda`` as a subprocess against the port's baseline must exit
+    0; its CPU rehearsal (``--audit --device cpu``) and phase 41's meta
+    cells run as niced background processes started after the kernel
+    build (CPU work only, never the card), waited for here; for each
+    entry point the wire bytes,
+    the ``set_sync_debug_mode`` host-sync count, the op-sequence hash and
+    the in-place result are logged, and the launch counts of K1-K8 over
+    the registry's audited steps on the card must equal the calls of
+    their plain versions in the CPU rehearsal; negative controls in this
+    process: a step with a planted ``.item()`` and one with a planted
+    out-of-place update must be flagged;
+41. the dry run: ``repro_torch.launch.dryrun``'s CLI on the ``meta``
+    device for qwen3-1.7b ``train_4k`` on both production meshes, with
+    and without ``--sp``, zamba2-7b ``prefill_32k``, rwkv6-1.6b
+    ``long_500k`` (all ``ok``) and qwen3-1.7b ``long_500k`` (``skipped``,
+    as the reference); then phase 4's workload (full-width qwen3-1.7b,
+    async top-k, tau_max 2, 2 workers, batch 4 x 256) traced on a (1, 1)
+    layout and run once on the card under ``FlopCounterMode``: the FLOPs
+    equal, the arguments' bytes equal the live state's, and the card's
+    peak (``max_memory_allocated`` less what the process held before)
+    over the trace's predicted peak within ``DRYRUN_PEAK_RATIO``.
 
 Phase 1 also logs the free disk of the checkpoint directory's filesystem
 and the free host memory.  The last three lines of standard output are the
@@ -297,7 +319,8 @@ rank's count, by phase 36's run), ``tp_launches`` (each rank's, by phase
 37's), ``tp_shapes`` (phase 37's times at each geometry),
 ``families_tp_launches`` and ``families_tp_shapes`` (phase 38's; K10 too),
 K1 and K2 ``kill_resume_launches``, K10 ``zamba2_launches``, K1 and K8
-``cosim_launches``, phase 39's over the three presets), the card's
+``cosim_launches``, phase 39's over the three presets; K1-K8
+``analysis_launches``, phase 40's over the registry's steps), the card's
 name and power limit, and the result ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -2880,13 +2903,15 @@ def check_ckpt_round_trip(torch, dev) -> None:
 
 KILL_RESUME_ARCH = "qwen3-1.7b"
 # a checkpoint is 24 bytes an entry (params, momentum, two ring slots, two
-# EF residuals): 41.3 GB at 28 layers, 13.5 GB at 5 (computed).  The phase
+# EF residuals): 41.3 GB at 28 layers, 11.1 GB at 3 (computed).  The phase
 # writes three (the first oracle's final one, the supervised run's steps 2
 # and 4; the second oracle's final state is compared with the first's file,
 # not written); a run of this script may write at most DISK_WRITE_LIMIT to
 # the host's disk, deleted files included (PERF.md section 4).  5 is the
-# deepest cut whose three writes fit in 0.85 of it (6 layers: 41.1 GiB)
-KILL_RESUME_LAYERS = 5
+# deepest cut whose three writes fit in 0.85 of it (6 layers: 41.1 GiB);
+# 3 since, for the script's time (the saves and loads take most of the
+# phase)
+KILL_RESUME_LAYERS = 3
 KILL_RESUME_WRITES = 3
 DISK_WRITE_LIMIT = 45 * 2 ** 30
 KILL_RESUME_STEPS = 4
@@ -3182,7 +3207,7 @@ def run_faulted_serve(torch, kernels) -> None:
 
 # phase 36: data-parallel workers over two torch.distributed ranks
 DIST_ARCH = "qwen3-1.7b"
-DIST_LAYERS = 7
+DIST_LAYERS = 4
 DIST_RUNS = (("async", ["--sync", "async", "--compressor", "topk",
                         "--ef", "--overlap", "--tau-max", "2",
                         "--async-schedule", "uniform"], 4),
@@ -3197,7 +3222,9 @@ DIST_RUNS = (("async", ["--sync", "async", "--compressor", "topk",
 # 25.6 GB for the oracle, more than the card; at 7 (663,518,976) it is
 # 48.3 + 18.6 GB, with about 9 GB left for the three CUDA contexts, the
 # ranks' reserved but unallocated cache and this process's reserve after
-# phases 1-35 (with the params alone kept, 13 layers left about 2 GB)
+# phases 1-35 (with the params alone kept, 13 layers left about 2 GB).
+# now 4 (512,510,976: 37.3 + 14.4 GB), for the script's time: the gloo
+# route's bytes, and so the phase, scale with the entries
 DIST_BYTES_PER_ENTRY = 36.4
 
 
@@ -3405,7 +3432,7 @@ def run_dist(torch, kernels, records) -> None:
 
 # phase 37: tensor parallelism over a 2 data x 2 model grid of four ranks
 TP_ARCH = "qwen3-1.7b"
-TP_LAYERS = 8
+TP_LAYERS = 4           # 8 before, cut for the script's time
 TP_RUNS = (("async", ["--sync", "async", "--compressor", "topk", "--ef",
                       "--overlap", "--tau-max", "2", "--async-schedule",
                       "uniform"], 4),
@@ -3700,14 +3727,14 @@ def run_tp(torch, kernels, records) -> None:
 # 45.2 GB (a 2 x 2 grid's two, 90.4 GB, do not fit), with 2 workers at
 # tau_max 1 (one ring slot less, one EF residual more than phase 36's rate)
 # and the oracle's final params, 5.0 GB, beside it: 0.59 of the card,
-# under 0.85 with four contexts and this process's reserve; zamba2 at 3 of
-# 81 (668,325,312 entries; the shared block runs before layer 0) and rwkv6
-# at 6 of 24 (620,906,496) hold two replicas on a 2 x 2 grid, 48.7 and
-# 45.2 GB
+# under 0.85 with four contexts and this process's reserve; zamba2 at 1 of
+# 81 (512,713,536 entries; the shared block runs before layer 0) and rwkv6
+# at 2 of 24 (385,927,168) hold two replicas on a 2 x 2 grid, 37.3 and
+# 28.1 GB (3 and 6 layers before, cut for the script's time)
 FAMILY_TP = (
     ("moonshot-v1-16b-a3b", 1, 2, 1, (("async", 4), ("topk_ef", 2))),
-    ("zamba2-7b", 3, 4, 2, (("async", 4),)),
-    ("rwkv6-1.6b", 6, 4, 2, (("async", 4),)),
+    ("zamba2-7b", 1, 4, 2, (("async", 4),)),
+    ("rwkv6-1.6b", 2, 4, 2, (("async", 4),)),
 )
 # K10 at a rank's heads in zamba2-7b training: batch 4 over 2 workers, 32
 # of the 64 heads of 112, N 64
@@ -4340,6 +4367,304 @@ def run_cosim(torch, kernels, records) -> None:
     log(f"phase 39: wall {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phases 40-41: the analysis CLI on the card, the dry run
+# ---------------------------------------------------------------------------
+
+# the kernels the registry's steps reach (K9 and K10 are on no audited
+# entry's path: the dense decode is plain, the smoke stack has no Mamba2)
+ANALYSIS_KERNELS = ("topk_ef", "topk_cr_deposit", "onebit_cr_deposit",
+                    "topk_cr_reduce", "onebit_cr_reduce", "delivery_step",
+                    "sync_step", "onebit_ef")
+# the dry run's cells on meta, (arch, shape, CLI flags) and the status
+# each must come back with
+DRYRUN_CELLS = (
+    ("qwen3-1.7b", "train_4k", ["--mesh", "both"], "ok"),
+    ("qwen3-1.7b", "train_4k", ["--mesh", "both", "--sp"], "ok"),
+    ("zamba2-7b", "prefill_32k", ["--mesh", "single"], "ok"),
+    ("rwkv6-1.6b", "long_500k", ["--mesh", "single"], "ok"),
+    ("qwen3-1.7b", "long_500k", ["--mesh", "single"], "skipped"))
+# the card's peak over the dry run's predicted peak for phase 4's
+# workload (PERF.md section 6: the trace counts the state, the tensors saved
+# for backward and the outputs, not the gradients and the step's other
+# temporaries)
+DRYRUN_PEAK_RATIO = (1.0, 1.8)
+
+
+# processes this script starts in the background (phase 40's CPU
+# rehearsal and phase 41's meta cells: CPU work that never touches the
+# card, niced, started after the kernel build), their directory, and the
+# time each was started; killed and removed at exit if still there
+BACKGROUND: dict = {"procs": {}, "dir": None}
+
+_DRYRUN_CELLS_SCRIPT = """
+import json, sys, time
+from repro_torch.launch import dryrun
+out, cells = sys.argv[1], json.loads(sys.argv[2])
+walls = []
+for i, (arch, shape, flags, _) in enumerate(cells):
+    t0 = time.perf_counter()
+    try:
+        dryrun.main(["--arch", arch, "--shape", shape, "--out",
+                     f"{out}/{i}"] + flags)
+    except SystemExit as e:
+        walls.append((e.code, time.perf_counter() - t0))
+json.dump(walls, open(f"{out}/walls.json", "w"))
+"""
+
+
+def _stop_background() -> None:
+    for proc, _ in BACKGROUND["procs"].values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if BACKGROUND["dir"] is not None:
+        shutil.rmtree(BACKGROUND["dir"], ignore_errors=True)
+
+
+def _popen(name, argv):
+    """Start ``argv`` niced, on one intra-op thread, in the background, its
+    output to a log."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")
+    log_path = os.path.join(BACKGROUND["dir"], f"{name}.log")
+    with open(log_path, "w") as fh:
+        proc = subprocess.Popen(argv, env=env, cwd=ROOT, stdout=fh,
+                                stderr=subprocess.STDOUT,
+                                preexec_fn=lambda: os.nice(19))
+    BACKGROUND["procs"][name] = (proc, time.perf_counter())
+    return proc
+
+
+def start_background() -> None:
+    """Phase 40's CPU rehearsal of the audit and phase 41's dry-run cells,
+    niced in the background: the cells' Python loops over full depth on
+    ``meta`` take minutes of one core (zamba2-7b's prefill_32k about 175
+    s), which phases 2-39 hide."""
+    import atexit
+    import tempfile
+
+    BACKGROUND["dir"] = tempfile.mkdtemp(prefix="analysis_")
+    atexit.register(_stop_background)
+    _popen("rehearsal", [sys.executable, "-m", "repro_torch.analysis",
+                         "--audit", "--device", "cpu", "--no-compile",
+                         "--json",
+                         os.path.join(BACKGROUND["dir"], "cpu.json")])
+    _popen("dryrun", [sys.executable, "-c", _DRYRUN_CELLS_SCRIPT,
+                      os.path.join(BACKGROUND["dir"], "dryrun"),
+                      json.dumps(DRYRUN_CELLS)])
+
+
+def _wait_background(name: str) -> None:
+    """Wait for a background process; log its output and its wall from
+    start to end (and how long this phase waited for it)."""
+    proc, started = BACKGROUND["procs"][name]
+    t0 = time.perf_counter()
+    rc = proc.wait(timeout=900)
+    with open(os.path.join(BACKGROUND["dir"], f"{name}.log")) as fh:
+        for line in fh.read().splitlines():
+            log(f"  {name}: {line}")
+    log(f"{name}: exit {rc}, {time.perf_counter() - started:.1f} s since "
+        f"it started in the background, waited {time.perf_counter() - t0:.1f}"
+        f" s for it")
+    require(rc == 0, f"background {name} exited {rc}")
+
+
+def _entry_kernels(report) -> dict:
+    total = {k: 0 for k in ANALYSIS_KERNELS}
+    for info in report["info"]["audit"]["entries"].values():
+        for k in ANALYSIS_KERNELS:
+            total[k] += info["kernels"].get(k, 0)
+    return total
+
+
+def analysis_controls(torch, dev) -> None:
+    """Phase 40's negative controls on the card: a planted ``.item()`` is a
+    host-sync finding (and ``set_sync_debug_mode`` sees it), a planted
+    out-of-place update a ``donation-unrealized`` one."""
+    from repro_torch.analysis import audit
+    from repro_torch.analysis.entrypoints import EntryPoint
+
+    def reads(x):
+        y = x * 2
+        return y + y.sum().item()
+
+    def rebinds(params):
+        params["w"] = params["w"] - 0.1
+        return params
+
+    x = torch.ones(8, device=dev)
+    found, info = audit.audit_entry(EntryPoint(
+        "planted/item", "train", lambda: (reads, (x,))))
+    log(f"analysis control .item(): {[str(f) for f in found]}; host syncs "
+        f"{info['host_syncs']}, sync_debug warnings {info['cuda_syncs']}")
+    require([f.rule for f in found] == ["host-sync-in-hot-path"]
+            and info["cuda_syncs"] >= 1,
+            "analysis: the planted .item() was not flagged")
+    found, info = audit.audit_entry(EntryPoint(
+        "planted/rebind", "train",
+        lambda: (rebinds, ({"w": torch.ones(8, device=dev)},)),
+        donate=(0,)))
+    log(f"analysis control out-of-place update: {[str(f) for f in found]}")
+    require([f.rule for f in found] == ["donation-unrealized"],
+            "analysis: the planted out-of-place update was not flagged")
+
+
+def run_analysis(torch, records, dev) -> None:
+    """Phase 40: the CLI on the card against the port's baseline (a
+    subprocess), the negative controls meanwhile, then the card's audit
+    against the CPU rehearsal."""
+    t_phase = time.perf_counter()
+    card_json = os.path.join(BACKGROUND["dir"], "card.json")
+    card_log = os.path.join(BACKGROUND["dir"], "card.log")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with open(card_log, "w") as fh:
+        card = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.analysis", "--all",
+             "--device", "cuda", "--json", card_json], env=env, cwd=ROOT,
+            stdout=fh, stderr=subprocess.STDOUT)
+    try:
+        analysis_controls(torch, dev)
+        rc_card = card.wait(timeout=600)
+    finally:
+        if card.poll() is None:
+            card.kill()
+    with open(card_log) as fh:
+        for line in fh.read().splitlines():
+            log(f"  analysis card: {line}")
+    log(f"analysis CLI on the card: exit {rc_card}, "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    require(rc_card == 0, f"analysis CLI on the card exited {rc_card}")
+    _wait_background("rehearsal")
+    with open(card_json) as fh:
+        on_card = json.load(fh)
+    with open(os.path.join(BACKGROUND["dir"], "cpu.json")) as fh:
+        on_cpu = json.load(fh)
+    entries = on_card["info"]["audit"]["entries"]
+    for name, info in entries.items():
+        log(f"analysis {name}: wire {info['collectives']['wire_bytes']} "
+            f"B, sync_debug warnings {info['cuda_syncs']}, host reads "
+            f"{info['host_syncs']}, op hash {info['op_hash']} "
+            f"({info['ops']} ops; variant "
+            f"{info.get('variant_op_hash', '-')}), in place "
+            f"{info.get('in_place', '-')}, kernels "
+            f"{ {k: v for k, v in info['kernels'].items() if v} }")
+    got, want = _entry_kernels(on_card), _entry_kernels(on_cpu)
+    log(f"analysis launches on the card {json.dumps(got)}; the CPU "
+        f"rehearsal's plain calls {json.dumps(want)}")
+    require(got == want, "analysis: card launches != CPU rehearsal")
+    require(got["topk_ef"] > 0, "analysis: the registry launched no K1")
+    for k, n in got.items():
+        records[k]["analysis_launches"] = n
+    require(on_card["new"] == [], "analysis: new findings on the card")
+    log(f"phase 40: wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def check_dryrun_cells() -> None:
+    """Phase 41's cells: the dry run's CLI on ``meta`` (run in the
+    background), each record's status and figures."""
+    _wait_background("dryrun")
+    out = os.path.join(BACKGROUND["dir"], "dryrun")
+    with open(os.path.join(out, "walls.json")) as fh:
+        walls = json.load(fh)
+    require(len(walls) == len(DRYRUN_CELLS), "dryrun: a cell did not run")
+    for i, ((arch, shape, flags, status), (code, wall)) in enumerate(
+            zip(DRYRUN_CELLS, walls)):
+        require(code == 0, f"dryrun {arch} {shape} {flags} exited {code}")
+        for name in sorted(os.listdir(os.path.join(out, str(i)))):
+            with open(os.path.join(out, str(i), name)) as fh:
+                rec = json.load(fh)
+            require(rec["status"] == status,
+                    f"dryrun {name}: {rec['status']} (want {status})")
+            if status != "ok":
+                log(f"dryrun {name}: {rec['status']} ({rec['reason']})")
+                continue
+            roof = rec["roofline"]
+            coll = rec["costs"]["collectives"] if "costs" in rec else \
+                {a: sum(v["bytes"] for v in k.values())
+                 for a, k in rec["collectives_by_axis"].items()}
+            log(f"dryrun {name}: traced in {rec['lower_s']} s ({wall:.1f} s "
+                f"the CLI run); peak {rec['memory']['peak_per_device_gb']} "
+                f"GiB a rank (fits {rec['fits']}); "
+                f"{json.dumps(rec['cost_analysis_raw'])}; collective bytes "
+                f"{json.dumps(coll)}; roofline compute "
+                f"{roof['compute_s']:.4g} s, memory {roof['memory_s']:.4g} "
+                f"s, collectives "
+                f"{ {a: round(v, 4) for a, v in roof['collective_s'].items()} }"
+                f" ({roof['links']}), bound by {roof['bound_by']}")
+
+
+def check_dryrun_against_card(torch) -> None:
+    """Phase 41: phase 4's workload traced on a (1, 1) layout and run
+    once on the card under FlopCounterMode."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMDataset, to_device
+    from repro_torch.dist.async_engine import AsyncConfig
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import ProductionMesh
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.params import init_params
+
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen3-1.7b")
+    mesh = ProductionMesh((1, 1), ("data", "model"))
+    acfg = AsyncConfig(tau_max=2, schedule="uniform", compressor="topk",
+                       error_feedback=True, topk_ratio=TOPK_RATIO,
+                       horizon=1024, seed=0, overlap=True)
+    meta_batch = {k: torch.empty((4, 256), dtype=torch.long, device="meta")
+                  for k in ("tokens", "labels")}
+    step, args = DR.build_train(cfg, mesh, meta_batch, "async", workers=2,
+                                async_cfg=acfg)
+    t0 = time.perf_counter()
+    pred = DR.trace(step, args)
+    log(f"dryrun phase 4's workload on meta: traced in "
+        f"{time.perf_counter() - t0:.1f} s; FLOPs {pred['flops']}, bytes "
+        f"{pred['bytes']}, memory {json.dumps(pred['memory'])}")
+    del step, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    dev = torch.device("cuda")
+    params = init_params(TF.model_defs(cfg),
+                         torch.Generator(device=dev).manual_seed(0), dev)
+    batch = to_device(SyntheticLMDataset(cfg.vocab_size, 256, 4,
+                                         seed=0).batch(0), dev)
+    step, args = DR.build_train(cfg, mesh, batch, "async", workers=2,
+                                async_cfg=acfg, device=dev, params=params)
+    live, _ = DR.storage_bytes([a for a in args if DR._is_state(a)])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flops = FlopCounterMode(display=False)
+    t0 = time.perf_counter()
+    with flops:
+        out = step(*args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - held
+    got = int(flops.get_total_flops())
+    predicted = pred["memory"]["peak_per_device_gb"] * 2 ** 30
+    ratio = peak / predicted
+    log(f"dryrun vs card: FLOPs card {got}, meta {pred['flops']}; argument "
+        f"bytes meta {pred['memory']['argument_bytes']}, live state {live}; "
+        f"peak card {peak} B ({peak / 2 ** 30:.3f} GiB; the process held "
+        f"{held} B before), predicted {predicted:.0f} B "
+        f"({pred['memory']['peak_per_device_gb']} GiB): ratio {ratio:.4f} "
+        f"(limit {DRYRUN_PEAK_RATIO}); the step {wall:.2f} s under the "
+        f"counter, loss {float(out[3]['loss']):.4f}")
+    require(got == pred["flops"], "dryrun: FLOPs on the card != the trace's")
+    require(live == pred["memory"]["argument_bytes"],
+            "dryrun: live state bytes != the trace's argument bytes")
+    require(DRYRUN_PEAK_RATIO[0] <= ratio <= DRYRUN_PEAK_RATIO[1],
+            f"dryrun: peak ratio {ratio:.4f} outside {DRYRUN_PEAK_RATIO}")
+    del out, step, args, params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 41 (the card check): wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4365,6 +4690,7 @@ def main() -> int:
     reports = _build.build_all()
     log(f"build: {len(reports)} CUDA libraries in "
         f"{time.perf_counter() - t0:.1f} s")
+    start_background()
     for name, report in reports.items():
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
@@ -4551,6 +4877,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_cosim_kernels(torch, dev, gen)
     run_cosim(torch, all_kernels(), records)
+
+    # the analysis CLI on the card beside its CPU rehearsal (the dry run's
+    # meta cells run meanwhile), then the dry run held to a card step
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_analysis(torch, records, dev)
+    check_dryrun_cells()
+    check_dryrun_against_card(torch)
     log(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -4562,7 +4896,7 @@ def main() -> int:
     extra = ("sector_bound_ms", "rwkv6_launches", "moonshot_launches",
              "zamba2_launches", "kill_resume_launches", "ranks_launches",
              "tp_launches", "tp_shapes", "families_tp_launches",
-             "families_tp_shapes", "cosim_launches")
+             "families_tp_shapes", "cosim_launches", "analysis_launches")
     line = [{k: records[kern.name][k] for k in keys
              + tuple(k for k in extra if k in records[kern.name])}
             for kern in all_kernels()]

@@ -6,7 +6,13 @@
     truth: exactly-once delivery, no slot aliasing at capacity
     tau_max + 1, crash/rejoin mass conservation, serving staleness <=
     tau_serve.
+  * `repro_torch.analysis.lint` — AST rules over the port's hot paths.
+  * `repro_torch.analysis.entrypoints` and `repro_torch.analysis.audit` —
+    every per-step program at smoke scale, run once each: the wire
+    inventory, device->host reads, the in-place contract and an
+    op-sequence hash.
   * `repro_torch.analysis.findings` — findings, fingerprints and the
-    baseline file format shared with the reference.
+    baseline file format shared with the reference; the port's baseline
+    is ``baseline.json`` here (``python -m repro_torch.analysis``).
 """
 from repro_torch.analysis.findings import Finding, Report  # noqa: F401

@@ -80,3 +80,27 @@ def synthetic_batch(cfg, batch_size: int, seq_len: int, seed: int = 0, *,
         batch[key] = 0.02 * torch.randn((batch_size, n, cfg.d_model),
                                         generator=gen, device=device)
     return batch
+
+
+def make_batch_specs(cfg, shape, device="meta") -> dict:
+    """Allocation-free stand-ins (tensors on ``device``, the ``meta``
+    device by default) for every model input of a workload ``shape``
+    (`repro_torch.configs.InputShape`), the reference's
+    ``make_batch_specs``: tokens (and training labels) (B, S) int64, the
+    audio stub's ``frame_embeds`` (B, S, d) and the vision stub's
+    ``patch_embeds`` (B, P, d) f32; a decode step's one new token (B, 1)."""
+    b = shape.global_batch
+    if shape.kind not in ("train", "prefill"):
+        return {"tokens": torch.empty((b, 1), dtype=torch.long,
+                                      device=device)}
+    s = shape.seq_len
+    specs = {"tokens": torch.empty((b, s), dtype=torch.long, device=device)}
+    if shape.kind == "train":
+        specs["labels"] = torch.empty((b, s), dtype=torch.long, device=device)
+    if cfg.frontend == FRONTEND_AUDIO:
+        specs["frame_embeds"] = torch.empty((b, s, cfg.d_model),
+                                            device=device)
+    if cfg.frontend == FRONTEND_VISION:
+        specs["patch_embeds"] = torch.empty(
+            (b, cfg.n_prefix_embeds, cfg.d_model), device=device)
+    return specs

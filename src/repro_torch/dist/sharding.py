@@ -19,11 +19,19 @@ a rank's trees in the whole layout, each split leaf as a
 :class:`WorkerRows` that is gathered or scattered one leaf at a time, on
 the host, when a checkpoint is written or read (`repro_torch.checkpoint`);
 :func:`scatter_state` and :func:`local_tree` take a restored whole layout
-back into the rank's trees.  The FSDP specs and the activation rules of
-the reference are GSPMD's: the port's execution is explicit
-(`repro_torch.models.actx`) and needs no rules.
+back into the rank's trees.
+
+:func:`make_act_rules` is the reference's activation rules over a layout
+(`repro_torch.launch.mesh.ProductionMesh`), kind -> spec tuple: which dim
+of each activation kind goes on which axis.  The port's execution is
+explicit (`repro_torch.models.actx`) and reads only the ``"residual"``
+rule (sequence parallelism); the others describe the layout its
+model-sharded leaves give.  The FSDP specs are
+`repro_torch.models.params.param_specs(..., fsdp_axes=)`.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -206,3 +214,62 @@ def local_tree(tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(local_tree(v) for v in tree)
     return tree
+
+
+# ---------------------------------------------------------------------------
+# layouts: axes and the activation rules (the dry run's)
+# ---------------------------------------------------------------------------
+
+def axis_sizes(mesh) -> dict:
+    """``{axis_name: size}`` of a `ProductionMesh`."""
+    return dict(mesh.sizes)
+
+
+def data_axes(mesh) -> tuple:
+    """The data-parallel axes, outermost first: ``("pod", "data")`` on
+    the multi-pod layout, ``("data",)`` otherwise."""
+    return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
+
+
+def data_size(mesh) -> int:
+    sizes = axis_sizes(mesh)
+    return math.prod(sizes[a] for a in data_axes(mesh))
+
+
+def _model_ok(mesh, n: int) -> bool:
+    m = axis_sizes(mesh).get("model", 1)
+    return m > 1 and n >= m and n % m == 0
+
+
+def make_act_rules(cfg, mesh, *, batch_size: int, seq_len: int,
+                   sequence_parallel: bool = False,
+                   batch_axes: bool = True) -> dict:
+    """kind -> spec tuple (one entry a dim: an axis name, a tuple of
+    them, or ``None``), the reference's ``make_act_rules``: the batch dim
+    over the data axes when they divide it (``batch_axes=False`` drops
+    them, as inside the reference's ``shard_map``), the heads, ``ff``,
+    vocab and experts over ``model`` when it divides them, and with
+    ``sequence_parallel`` the residual's S over ``model``."""
+    da = data_axes(mesh)
+    batch = (da if len(da) > 1 else da[0]) \
+        if (batch_axes and da and batch_size % data_size(mesh) == 0) \
+        else None
+
+    def model_if(n: int):
+        return "model" if _model_ok(mesh, n) else None
+
+    heads = cfg.n_heads or 1
+    seq = "model" if (sequence_parallel and _model_ok(mesh, seq_len)) \
+        else None
+    rules = {
+        "residual": (batch, seq, None),                  # (B, S, d)
+        "ffn_hidden": (batch, None, model_if(cfg.d_ff)),
+        "attn_q": (batch, None, model_if(heads), None),  # (B, S, H, hd)
+        "attn_kv": (batch, None, model_if(cfg.n_kv_heads or 1), None),
+        "logits": (batch, None, model_if(cfg.vocab_size)),
+    }
+    if cfg.is_moe:
+        e = model_if(cfg.n_experts)
+        rules["moe_expert"] = (e, batch, None, None)     # (E, G, C, d)
+        rules["moe_hidden"] = (e, batch, None, None)
+    return rules

@@ -282,6 +282,25 @@ def make_elastic_train_step(cfg: ArchConfig, opt, scfg: SyncConfig, workers,
 # serving steps (the dense legacy loop: the paged engine's oracle)
 # ---------------------------------------------------------------------------
 
+def _next_tokens(cfg: ArchConfig, logits, sc: SampleConfig, gen):
+    """(B, V) last-position logits -> (B,) tokens.  Under a model group
+    whose logits are sharded on the vocab, greedy decoding takes the
+    group's largest logit (the lowest vocab id of a tie, as ``argmax``
+    over the whole vocab); sampled decoding there is not ported."""
+    start = TF.logits_vocab_start(cfg)
+    if start is None:
+        return sample_tokens(logits, sc, gen)
+    if not sc.is_greedy:
+        raise NotImplementedError("sampled decoding over vocab-sharded "
+                                  "logits is not ported")
+    ctx = actx.current()
+    best, idx = torch.max(logits.float(), dim=-1)
+    bests = ctx.gather(best)                                  # (m, B)
+    ids = ctx.gather(idx + start)
+    rank = torch.argmax(bests, dim=0, keepdim=True)
+    return torch.gather(ids, 0, rank)[0].to(torch.int32)
+
+
 def make_prefill_step(cfg: ArchConfig, max_len: int, sample=None):
     """``(params, batch, gen=None) -> (tokens (B,), cache)``: run the
     prompt, allocate a ``max_len`` cache, emit the first continuation
@@ -293,7 +312,7 @@ def make_prefill_step(cfg: ArchConfig, max_len: int, sample=None):
     @torch.no_grad()
     def prefill_step(params, batch, gen=None):
         logits, cache = TF.prefill(cfg, params, batch, max_len)
-        return sample_tokens(logits[:, -1, :], sc, gen), cache
+        return _next_tokens(cfg, logits[:, -1, :], sc, gen), cache
 
     return prefill_step
 
@@ -307,6 +326,6 @@ def make_decode_step(cfg: ArchConfig, sample=None):
     @torch.no_grad()
     def decode_step(params, cache, tokens, gen=None):
         logits, cache = TF.decode_step(cfg, params, cache, tokens)
-        return sample_tokens(logits[:, -1, :], sc, gen), cache
+        return _next_tokens(cfg, logits[:, -1, :], sc, gen), cache
 
     return decode_step

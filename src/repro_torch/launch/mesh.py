@@ -26,8 +26,9 @@ model shards of its workers (`repro_torch.models.actx`).
 in the same order on every rank.  :class:`Exchange` gathers raw bytes over
 one such group.
 
-The production mesh (the reference's ``make_production_mesh``, 256 or 512
-chips) is not ported: it waits for the port's dry-run slice.
+:func:`make_production_mesh` is the reference's production layout (256
+or 512 cards) as a layout only, with no process group: the dry run
+(`repro_torch.launch.dryrun`) traces rank 0 of it.
 """
 from __future__ import annotations
 
@@ -82,6 +83,29 @@ class RankLayout:
         ``w`` runs on data rank ``w // (n_workers / data_world)``."""
         per = n_workers // self.data_world
         return range(self.data_rank * per, (self.data_rank + 1) * per)
+
+
+@dataclass(frozen=True)
+class ProductionMesh:
+    """A device layout without devices or a process group: the axes'
+    names, outermost first, and their sizes (the model axis innermost, as
+    the reference's ``("data", "model")`` device order)."""
+
+    shape: tuple
+    axis_names: tuple
+
+    @property
+    def sizes(self) -> dict:
+        return dict(zip(self.axis_names, self.shape))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> ProductionMesh:
+    """The reference's production mesh: (data 16, model 16), 256 cards;
+    multi-pod (pod 2, data 16, model 16), 512, the ``pod`` axis an outer
+    data-parallel axis."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return ProductionMesh(shape, axes)
 
 
 def default_backend(device_type: str) -> str:

@@ -30,6 +30,29 @@ touch it.
   a max over the group, then the sums of exponentials and the target
   logits, without gathering the (B, S, V) logits.
 
+Sequence parallelism (Megatron-SP; the reference's ``--sp`` dry-run
+lever): under :func:`rules` whose ``"residual"`` rule shards the sequence
+dim on ``model`` (`repro_torch.dist.sharding.make_act_rules`, the port's
+counterpart of ``RunFlags.act_sharding``), the residual stream between
+blocks is this rank's ``S / m`` positions, and the pair beside ``copy_in``
+and ``reduce_out`` takes their place (:func:`block_in`,
+:func:`block_out`):
+
+* :func:`gather_seq` gathers the positions of every rank forward (an
+  all-gather over S) and sums the gradient over the group backward,
+  keeping this rank's positions (a reduce-scatter), at a column-parallel
+  entry;
+* :func:`scatter_seq` sums over the group forward and keeps this rank's
+  positions (a reduce-scatter), and gathers the gradient's positions
+  backward (an all-gather), at a row-parallel exit.
+
+A block whose collectives stay inside it (the MoE, Mamba2, RWKV6) runs on
+the gathered sequence (``gather_leaf`` over S forward, this rank's slice
+of the replicated gradient backward) and hands back its positions
+(:func:`split_seq`); a replicated leaf that acts on this rank's positions
+only (the norm scales) takes ``copy_in`` (:func:`seq_leaf`), its gradient
+being partial on each rank.
+
 Every sum is a gather, then a sum in model-rank order in f32, cast back to
 the summed tensor's dtype: the same bits on every rank of the group, so
 the replicated activations and leaves never drift apart, whatever order
@@ -38,15 +61,18 @@ every rank builds the same graph, so they meet in the same order.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 _CTX = None
 
 
 def model_dim(spec) -> int | None:
-    """The dim a param spec shards over ``model`` (``None``: replicated)."""
+    """The dim a param spec shards over ``model`` (``None``: not sharded
+    over the model group)."""
     for i, s in enumerate(tuple(spec)):
-        if s is not None:
+        if s == "model":
             return i
     return None
 
@@ -95,6 +121,20 @@ class ModelGroup:
             acc = acc + part
         return acc.to(x.dtype)
 
+    def reduce_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's ``1 / size`` of ``dim`` of the sum of every rank's
+        ``x``, summed in model order in f32 and cast to ``x``'s dtype;
+        counted as ``model_reduce_scatter`` with its input bytes (what a
+        ring reduce-scatter moves, so that a reduce-scatter and an
+        all-gather of one payload count what one ``sum`` does)."""
+        self._counted("model_reduce_scatter", x.nbytes)
+        parts = self._ex.gather_rows(x.unsqueeze(0))
+        acc = parts[0].float()
+        for part in parts[1:]:
+            acc = acc + part
+        n = x.shape[dim] // self.size
+        return acc.to(x.dtype).narrow(dim, self.rank * n, n).contiguous()
+
     def _flag(self, flag: bool, device) -> torch.Tensor:
         # nccl gathers on the card
         return torch.tensor([1 if flag else 0], dtype=torch.uint8,
@@ -111,6 +151,9 @@ class ModelGroup:
         return bool(self._world.gather_rows(self._flag(flag, device)).all())
 
 
+_RULES = None
+
+
 def install(ctx: ModelGroup | None) -> None:
     """Make ``ctx`` the model group of every operator here (``None``:
     none, every operator the identity)."""
@@ -120,6 +163,29 @@ def install(ctx: ModelGroup | None) -> None:
 
 def current() -> ModelGroup | None:
     return _CTX
+
+
+@contextlib.contextmanager
+def rules(act_rules: dict | None):
+    """Make ``act_rules`` (kind -> spec tuple,
+    `repro_torch.dist.sharding.make_act_rules`) the activation rules of
+    the model code inside the block; only the ``"residual"`` rule is read
+    (sequence parallelism)."""
+    global _RULES
+    old, _RULES = _RULES, act_rules
+    try:
+        yield
+    finally:
+        _RULES = old
+
+
+def seq_parallel() -> bool:
+    """Whether the residual stream is sharded on S over the model group:
+    a group is installed and the ``"residual"`` rule puts ``model`` on
+    dim 1."""
+    rule = None if _RULES is None else _RULES.get("residual")
+    return _CTX is not None and rule is not None and len(rule) > 1 \
+        and rule[1] == "model"
 
 
 class _CopyIn(torch.autograd.Function):
@@ -164,6 +230,86 @@ class _GatherLeaf(torch.autograd.Function):
     def backward(ctx, grad):
         return grad.narrow(ctx.dim, ctx.group.rank * ctx.n, ctx.n), None, \
             None
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return group.gather_dim(x, 1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.group.reduce_scatter(grad, 1), None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return group.reduce_scatter(x, 1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.group.gather_dim(grad, 1), None
+
+
+class _SplitSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        n = x.shape[1] // group.size
+        return x.narrow(1, group.rank * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.group.gather_dim(grad, 1), None
+
+
+def gather_seq(x: torch.Tensor) -> torch.Tensor:
+    """(B, S / m, ...) -> (B, S, ...): an all-gather over S forward, a
+    reduce-scatter backward (the column-parallel entry under sequence
+    parallelism)."""
+    return _GatherSeq.apply(x, _CTX)
+
+
+def scatter_seq(x: torch.Tensor) -> torch.Tensor:
+    """(B, S, ...) partial sums -> this rank's (B, S / m, ...) of their
+    sum: a reduce-scatter forward, an all-gather backward (the row-parallel
+    exit under sequence parallelism)."""
+    return _ScatterSeq.apply(x, _CTX)
+
+
+def split_seq(x: torch.Tensor) -> torch.Tensor:
+    """This rank's positions of a replicated (B, S, ...) forward (no
+    collective); the gradient's positions gathered backward."""
+    return _SplitSeq.apply(x, _CTX)
+
+
+def block_in(x: torch.Tensor) -> torch.Tensor:
+    """A column-parallel entry: :func:`gather_seq` under sequence
+    parallelism, else :func:`copy_in`."""
+    return gather_seq(x) if seq_parallel() else copy_in(x)
+
+
+def block_out(x: torch.Tensor) -> torch.Tensor:
+    """A row-parallel exit: :func:`scatter_seq` under sequence
+    parallelism, else :func:`reduce_out`."""
+    return scatter_seq(x) if seq_parallel() else reduce_out(x)
+
+
+def seq_whole(x: torch.Tensor) -> torch.Tensor:
+    """Under sequence parallelism the whole sequence of this rank's
+    positions ``x`` for a block that takes it replicated (``gather_leaf``
+    over S); else ``x``."""
+    return gather_leaf(x, 1) if seq_parallel() else x
+
+
+def seq_leaf(a: torch.Tensor) -> torch.Tensor:
+    """A replicated leaf that acts on the residual stream: behind
+    ``copy_in`` under sequence parallelism (its gradient is partial, this
+    rank's positions only), else as it is."""
+    return copy_in(a) if seq_parallel() else a
 
 
 def copy_in(x: torch.Tensor) -> torch.Tensor:

@@ -13,7 +13,8 @@ Pallas, so it is plain torch here too.
 Under a `repro_torch.models.actx` model group the weights are this rank's
 shards: the attention runs its heads, the MLP its ``ff`` slice, and the
 row-parallel ``wo`` and ``w_down`` products are summed over the group
-(``reduce_out``); without one that sum is the identity.
+(``reduce_out``, or under sequence parallelism ``scatter_seq``: the
+``actx.block_out`` exit); without one that sum is the identity.
 """
 from __future__ import annotations
 
@@ -174,15 +175,17 @@ def attention_block(params, cfg, x, positions, *, window: int,
         k_cache[:, cache_index:cache_index + s_new] = k.to(k_cache.dtype)
         v_cache[:, cache_index:cache_index + s_new] = v.to(v_cache.dtype)
         b, t, nk, hd = k_cache.shape
-        q5 = q.reshape(b, 1, nk, cfg.n_heads // nk, hd)
+        hq = q.shape[2]                  # the rank's heads under a group
+        q5 = q.reshape(b, 1, nk, hq // nk, hd)
         k_pos = torch.arange(t, device=x.device)
         k_pos = torch.where(k_pos <= cache_index, k_pos, -1)
         out = masked_attn_chunk(
             q5, k_cache.to(dt), v_cache.to(dt), positions, k_pos, window,
-            hd ** -0.5).reshape(b, 1, cfg.n_heads, hd).to(dt)
+            hd ** -0.5).reshape(b, 1, hq, hd).to(dt)
         kv = kv_cache
     # row-parallel under a model group: the heads' partial sums, summed
-    return actx.reduce_out(
+    # (under sequence parallelism, summed and scattered over S)
+    return actx.block_out(
         torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dt))), kv
 
 
@@ -196,8 +199,9 @@ def mlp_defs(d: int, ff: int) -> dict:
 
 def mlp_block(params, x):
     """The gated MLP; under a model group ``ff`` is this rank's shard and
-    the row-parallel ``w_down``'s partial sums are summed."""
+    the row-parallel ``w_down``'s partial sums are summed (under sequence
+    parallelism, summed and scattered over S)."""
     dt = x.dtype
     gate = F.silu(x @ params["w_gate"].to(dt))
     up = x @ params["w_up"].to(dt)
-    return actx.reduce_out((gate * up) @ params["w_down"].to(dt))
+    return actx.block_out((gate * up) @ params["w_down"].to(dt))

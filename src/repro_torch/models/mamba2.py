@@ -169,10 +169,13 @@ def mamba2_block(params, cfg, x, *, state=None):
     return out, {"conv_x": new_cx, "conv_bc": new_cbc, "ssm": new_ssm}
 
 
-def mamba2_init_state(cfg, batch: int, device=None) -> dict:
+def mamba2_init_state(cfg, batch: int, device=None, *,
+                      model: int = 1) -> dict:
+    """Zero decode state; over ``model`` ranks, a rank's share of
+    ``dinner`` and of the heads."""
     d = cfg.d_model
-    di = cfg.ssm_expand * d
-    n, h = cfg.ssm_state, cfg.ssm_heads
+    di = cfg.ssm_expand * d // model
+    n, h = cfg.ssm_state, cfg.ssm_heads // model
     z = lambda *s: torch.zeros(s, dtype=torch.float32, device=device)
     return {"conv_x": z(batch, cfg.conv_width - 1, di),
             "conv_bc": z(batch, cfg.conv_width - 1, 2 * n),

@@ -20,7 +20,13 @@ over the group (``reduce_out``).  The router's gradient has two parts: the
 aux loss's is whole on every rank, the combine weights' partial (this
 rank's experts only).  So the combine takes its logits through
 ``copy_in`` (summed backward) and the aux loss takes them as they are:
-each part reaches the router once.
+each part reaches the router once.  With fewer experts than model ranks
+the reference shards the expert leaves on ``ff`` instead: every rank then
+runs every expert on its ``ff`` slice (column-parallel ``w_gate`` /
+``w_up``, row-parallel ``w_down``), with ``dispatch`` and ``combine``
+whole and the same two routes of the router's gradient.  Under sequence
+parallelism the block takes the whole sequence and scatters its sum over
+S (``actx.block_out``).
 """
 from __future__ import annotations
 
@@ -117,9 +123,10 @@ def moe_block(params, cfg, x: torch.Tensor):
         else:
             dispatch, combine, aux = route(actx.copy_in(logits), k, cap,
                                            aux_logits=logits)
-            n = e // ctx.size
-            dispatch = dispatch[:, :, ctx.rank * n:(ctx.rank + 1) * n]
-            combine = combine[:, :, ctx.rank * n:(ctx.rank + 1) * n]
+            n = params["w_gate"].shape[0]       # e: every expert, on ff
+            if n < e:
+                dispatch = dispatch[:, :, ctx.rank * n:(ctx.rank + 1) * n]
+                combine = combine[:, :, ctx.rank * n:(ctx.rank + 1) * n]
         xe = torch.einsum("gtec,gtd->egcd", dispatch.to(dt),
                           actx.copy_in(groups))
     gate = F.silu(torch.einsum("egcd,edf->egcf", xe,
@@ -128,4 +135,4 @@ def moe_block(params, cfg, x: torch.Tensor):
     out_e = torch.einsum("egcf,efd->egcd", gate * up,
                          params["w_down"].to(dt))
     out = torch.einsum("egcd,gtec->gtd", out_e, combine.to(dt))
-    return actx.reduce_out(out.reshape(b, s, d)), aux
+    return actx.block_out(out.reshape(b, s, d)), aux

@@ -7,7 +7,9 @@ compressors act per leaf: the top-k of ``w_gate`` is taken over all its
 layers at once, and splitting the leaf would change which entries win.
 
 Spec resolution maps logical axes to the ``model`` mesh axis exactly as the
-reference does.  At a model axis of 1 every spec is all-``None``; under
+reference does, and, for the dry run, the FSDP data axes
+(``fsdp_axes``); :func:`shard_shape` is one device's shard of a leaf and
+:func:`abstract_params` the tree on the ``meta`` device.  At a model axis of 1 every spec is all-``None``; under
 ``--model-shards m`` a rank holds model rank ``j``'s slice of each leaf its
 spec shards (`repro_torch.dist.sharding.shard_leaf`), and
 :func:`init_params` / :func:`params_from_jax` draw or read each whole leaf
@@ -33,6 +35,10 @@ from repro_torch import tree as T
 
 MODEL_AXIS_PRIORITY = (
     "experts", "vocab", "heads", "kv_heads", "ff", "dinner", "state", "embed",
+)
+# logical axes eligible for FSDP (data-axis) sharding, after the model axis
+FSDP_AXIS_CANDIDATES = (
+    "embed", "ff", "dinner", "vocab", "heads", "kv_heads", "experts",
 )
 
 
@@ -71,9 +77,15 @@ def stack_defs(defs, n: int):
                                       axes=("layers", *d.axes)), defs)
 
 
-def resolve_spec(d: ParamDef, axis_sizes: dict) -> tuple:
-    """Logical axes -> mesh axis per dim (``"model"`` or ``None``)."""
+def resolve_spec(d: ParamDef, axis_sizes: dict,
+                 fsdp_axes: tuple = ()) -> tuple:
+    """Logical axes -> mesh axis per dim, as the reference's
+    ``resolve_spec``: ``"model"`` on the highest-priority divisible dim,
+    then (``fsdp_axes``, e.g. ``("data",)``) the data axes on the largest
+    remaining eligible dim (one name, or a tuple of several); ``None``
+    elsewhere."""
     model_size = axis_sizes.get("model", 1)
+    fsdp_size = math.prod(axis_sizes.get(a, 1) for a in fsdp_axes)
     spec = [None] * len(d.shape)
     if model_size > 1:
         ranked = sorted(
@@ -83,11 +95,39 @@ def resolve_spec(d: ParamDef, axis_sizes: dict) -> tuple:
             if d.shape[i] % model_size == 0 and d.shape[i] >= model_size:
                 spec[i] = "model"
                 break
+    if fsdp_size > 1 and fsdp_axes:
+        cands = [i for i, ax in enumerate(d.axes)
+                 if ax in FSDP_AXIS_CANDIDATES and spec[i] is None
+                 and d.shape[i] % fsdp_size == 0
+                 and d.shape[i] >= fsdp_size]
+        if cands:
+            i = max(cands, key=lambda i: d.shape[i])
+            spec[i] = fsdp_axes if len(fsdp_axes) > 1 else fsdp_axes[0]
     return tuple(spec)
 
 
-def param_specs(defs, axis_sizes: dict | None = None):
-    return T.tree_map(lambda d: resolve_spec(d, axis_sizes or {}), defs)
+def param_specs(defs, axis_sizes: dict | None = None, fsdp_axes: tuple = ()):
+    return T.tree_map(lambda d: resolve_spec(d, axis_sizes or {}, fsdp_axes),
+                      defs)
+
+
+def shard_shape(shape: tuple, spec, axis_sizes: dict) -> tuple:
+    """The shape of one device's shard of a ``shape`` leaf under ``spec``
+    (each sharded dim divided by the product of its axes' sizes)."""
+    out = []
+    for n, s in zip(shape, tuple(spec)):
+        names = () if s is None else ((s,) if isinstance(s, str) else s)
+        out.append(n // math.prod(axis_sizes.get(a, 1) for a in names))
+    return tuple(out)
+
+
+def abstract_params(defs, device="meta"):
+    """The ParamDef tree as float32 tensors on the ``meta`` device (the
+    reference's ``ShapeDtypeStruct`` stand-ins): shapes and dtypes, no
+    storage."""
+    return T.tree_map(
+        lambda d: torch.empty(d.shape, dtype=torch.float32, device=device),
+        defs)
 
 
 def init_params(defs, gen: torch.Generator, device=None, *, specs=None,

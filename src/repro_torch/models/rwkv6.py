@@ -172,8 +172,10 @@ def rwkv6_block(params, cfg, x, state=None):
     return tm_out + cm_out, new_state
 
 
-def rwkv6_init_state(cfg, batch: int, device=None) -> dict:
-    d, h, n = cfg.d_model, cfg.ssm_heads, cfg.ssm_state
+def rwkv6_init_state(cfg, batch: int, device=None, *,
+                     model: int = 1) -> dict:
+    """Zero decode state; over ``model`` ranks, a rank's heads."""
+    d, h, n = cfg.d_model, cfg.ssm_heads // model, cfg.ssm_state
     return {
         "tm_last": torch.zeros((batch, 1, d), dtype=torch.float32,
                                device=device),

@@ -45,7 +45,16 @@ replicated leaf that only head-local activations use (``q_norm``,
 goes through ``copy_in``, so that its partial gradients are summed over
 the group.  Each family's split leaves are in :data:`_TP`; an ``m`` at
 which the reference's spec would put one of them on another dim is
-refused (:func:`check_tensor_parallel`).
+refused (:func:`check_tensor_parallel`), but for two cases the
+production mesh's 16 model ranks need: fewer kv heads than ranks (every
+rank projects the kv head of its query heads, :func:`kv_fallback`) and
+fewer experts than ranks (the experts sharded on ``ff``,
+`repro_torch.models.moe`).  The serving steps run under a model group too
+(the caches hold the rank's heads, :func:`init_cache`).  Under
+`repro_torch.models.actx` sequence parallelism (the dry run's ``--sp``)
+the residual stream is this rank's S / m positions: the attention and
+MLP enter through ``gather_seq`` and leave through ``scatter_seq``, and
+the MoE, Mamba2 and RWKV6 blocks run on the whole sequence.
 """
 from __future__ import annotations
 
@@ -112,16 +121,22 @@ def model_defs(cfg: ArchConfig) -> dict:
 # per family: the per-layer dim each split leaf must be sharded on (the
 # reference's attn_q / attn_kv, ffn_hidden, moe_expert and ssm points;
 # RWKV6's ln_x and decay_bias are used on the rank's heads, their embed
-# slice), and the replicated leaves that only head-local activations use,
-# with the dim of which the rank takes its heads' share (None: whole)
+# slice; a tuple: any of those dims, the MoE's experts or, when the
+# experts do not divide m, their ff), and the replicated leaves that only
+# head-local activations use, with the dim of which the rank takes its
+# heads' share (None: whole)
 _ATTN = {("attn", "wq"): 1, ("attn", "wk"): 1, ("attn", "wv"): 1,
          ("attn", "wo"): 0}
 _MLP = {("mlp", "w_gate"): 1, ("mlp", "w_up"): 1, ("mlp", "w_down"): 0}
 _QK_NORMS = {("attn", "q_norm"): None, ("attn", "k_norm"): None}
+# the kv projections: with fewer kv heads K than model ranks (m % K == 0)
+# the reference shards them on another dim; every rank then gathers them
+# whole and projects the one kv head its H / m query heads share
+_KV = (("attn", "wk"), ("attn", "wv"))
 _TP = {
     "attention": ({**_ATTN, **_MLP}, _QK_NORMS),
-    "MoE": ({**_ATTN, ("moe", "w_gate"): 0, ("moe", "w_up"): 0,
-             ("moe", "w_down"): 0}, _QK_NORMS),
+    "MoE": ({**_ATTN, ("moe", "w_gate"): (0, 2), ("moe", "w_up"): (0, 2),
+             ("moe", "w_down"): (0, 1)}, _QK_NORMS),
     "Mamba2": ({("mamba", k): dim for k, dim in (
         ("z_proj", 1), ("x_proj", 1), ("dt_proj", 1), ("conv_x_w", 1),
         ("conv_x_b", 0), ("a_log", 0), ("dt_bias", 0), ("d_skip", 0),
@@ -147,13 +162,33 @@ def tp_specs(cfg: ArchConfig, m: int):
     return param_specs(model_defs(cfg), {"model": m})
 
 
+def _dims(dim) -> tuple:
+    return dim if isinstance(dim, tuple) else (dim,)
+
+
+def kv_fallback(cfg: ArchConfig, m: int) -> bool:
+    """Whether ``cfg``'s kv heads are fewer than ``m`` model ranks and
+    shared whole (``m`` a multiple of them, the query heads split): each
+    rank then projects the one kv head of its query heads."""
+    k = cfg.n_kv_heads or cfg.n_heads
+    return (cfg.block_type != BLOCK_RWKV6 and k < m and m % k == 0
+            and cfg.n_heads % m == 0)
+
+
+def local_kv_heads(cfg: ArchConfig, m: int) -> int:
+    """The kv heads a rank of ``m`` holds (its cache's)."""
+    k = cfg.n_kv_heads or cfg.n_heads
+    return 1 if kv_fallback(cfg, m) else k // m
+
+
 def check_tensor_parallel(cfg: ArchConfig, m: int) -> None:
     """Raise ``ValueError`` unless ``cfg`` runs over ``m`` model shards:
     every split leaf of its family (and of zamba2's shared block) must be
-    sharded on its dim by the reference's spec, and RWKV6's heads must not
-    be cut (its ``dinner`` is ``ssm_heads`` x ``ssm_state``).  The message
-    names each such dim that ``m`` does not divide, and the leaves that
-    the reference would shard on another dim instead."""
+    sharded on its dim by the reference's spec (the kv projections may
+    fall back, :func:`kv_fallback`), and RWKV6's heads must not be cut
+    (its ``dinner`` is ``ssm_heads`` x ``ssm_state``).  The message names
+    each such dim that ``m`` does not divide, and the leaves that the
+    reference would shard on another dim instead."""
     if m <= 1:
         return
     defs, specs = model_defs(cfg), tp_specs(cfg, m)
@@ -163,10 +198,14 @@ def check_tensor_parallel(cfg: ArchConfig, m: int) -> None:
     dims, fell = {}, []
     for block, split, lead in blocks:
         for key, dim in split.items():
+            if key in _KV and kv_fallback(cfg, m):
+                continue
             spec = functools.reduce(dict.__getitem__, key, specs[block])
-            if actx.model_dim(spec) != dim + lead:
+            got = actx.model_dim(spec)
+            if got is None or got - lead not in _dims(dim):
                 d = functools.reduce(dict.__getitem__, key, defs[block])
-                dims[d.axes[dim + lead]] = d.shape[dim + lead]
+                first = _dims(dim)[0] + lead
+                dims[d.axes[first]] = d.shape[first]
                 fell.append("/".join((block, *key)))
     if cfg.block_type == BLOCK_RWKV6 and cfg.ssm_heads % m:
         dims["heads"] = cfg.ssm_heads
@@ -178,20 +217,38 @@ def check_tensor_parallel(cfg: ArchConfig, m: int) -> None:
                "dim)" if fell else " (it would cut an RWKV6 head)"))
 
 
+def check_sequence_parallel(cfg: ArchConfig, m: int, seq_len: int) -> None:
+    """Raise ``ValueError`` unless sequence parallelism over ``m`` ranks
+    takes ``seq_len`` positions (``m`` divides them)."""
+    if seq_len % m:
+        raise ValueError(f"{cfg.name}: sequence parallelism over {m} model "
+                         f"ranks needs the sequence ({seq_len}) to be a "
+                         "multiple of them")
+
+
 def _tp_layer(lp: dict, specs: dict, family: str, lead: int = 1) -> dict:
     """One layer's leaves (or zamba2's shared block's, ``lead`` 0: no
     stacked layers dim) as its blocks use them under a model group: the
     split leaves of ``family`` as they are, the other sharded leaves
     gathered whole, the head-local replicated leaves behind ``copy_in``
-    (and cut to the rank's heads where :data:`_TP` names a dim)."""
+    (and cut to the rank's heads where :data:`_TP` names a dim).  A kv
+    projection sharded on another dim (:func:`kv_fallback`) is gathered
+    whole behind ``copy_in`` (each rank's gradient is its kv head's only)
+    and cut to the kv head of the rank's query heads."""
     split, local = _TP[family]
     ctx = actx.current()
     flat, td = T.flatten(lp)
     out = []
     for path, a, spec in zip(T.paths(lp), flat, T.leaves(specs)):
         key, dim = tuple(path.split("/")), actx.model_dim(spec)
-        if key in split:
+        if key in split and dim is not None \
+                and dim - lead in _dims(split[key]):
             out.append(a)
+        elif key in _KV and key in split:
+            whole = actx.copy_in(actx.gather_leaf(
+                a, None if dim is None else dim - lead))
+            k = whole.shape[1]
+            out.append(whole.narrow(1, ctx.rank * k // ctx.size, 1))
         elif dim is not None:
             out.append(actx.gather_leaf(a, dim - lead))
         elif key in local:
@@ -233,10 +290,16 @@ def embed_input(cfg: ArchConfig, params, batch: dict) -> torch.Tensor:
     audio batch's ``frame_embeds`` (B, S, d) replace the token embeddings,
     a vision batch's ``patch_embeds`` (B, P, d) replace the first P
     positions' token embeddings.  A batch without them embeds its tokens
-    only."""
-    if cfg.frontend == FRONTEND_AUDIO and "frame_embeds" in batch:
-        return batch["frame_embeds"].to(COMPUTE_DTYPE)
+    only.  Under sequence parallelism the result is this rank's S / m
+    positions: the vocab-parallel lookup's sum is scattered over S
+    (``actx.block_out``), anything else replicated is split
+    (``actx.split_seq``)."""
     ctx = actx.current()
+    sp = actx.seq_parallel()
+    if cfg.frontend == FRONTEND_AUDIO and "frame_embeds" in batch:
+        x = batch["frame_embeds"].to(COMPUTE_DTYPE)
+        return actx.split_seq(x) if sp else x
+    vision = cfg.frontend == FRONTEND_VISION and "patch_embeds" in batch
     if ctx is None:
         x = params["embed"][batch["tokens"].long()].to(COMPUTE_DTYPE)
     elif actx.model_dim(tp_specs(cfg, ctx.size)["embed"]) == 0:
@@ -246,20 +309,25 @@ def embed_input(cfg: ArchConfig, params, batch: dict) -> torch.Tensor:
         local = batch["tokens"].long() - ctx.rank * v
         inside = (local >= 0) & (local < v)
         rows = emb[torch.where(inside, local, torch.zeros_like(local))]
-        x = actx.reduce_out((rows * inside[..., None]).to(COMPUTE_DTYPE))
+        rows = (rows * inside[..., None]).to(COMPUTE_DTYPE)
+        if sp and not vision:
+            return actx.scatter_seq(rows)
+        x = actx.reduce_out(rows)
     else:
         emb = actx.gather_leaf(params["embed"], 1)
         x = emb[batch["tokens"].long()].to(COMPUTE_DTYPE)
-    if cfg.frontend == FRONTEND_VISION and "patch_embeds" in batch:
+    if vision:
         p = batch["patch_embeds"].shape[1]
         x = torch.cat([batch["patch_embeds"].to(COMPUTE_DTYPE), x[:, p:]],
                       dim=1)
-    return x
+    return actx.split_seq(x) if sp else x
 
 
 def lm_logits(cfg: ArchConfig, params, x: torch.Tensor) -> torch.Tensor:
     """Final norm + LM head (tied to the embedding when configured); bf16
-    operands, f32 logits."""
+    operands, f32 logits.  Under sequence parallelism ``x`` is this rank's
+    positions: the vocab-split head gathers them (``actx.block_in``), a
+    whole head takes the whole sequence (``actx.seq_whole``)."""
     ctx = actx.current()
     if ctx is None:
         x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
@@ -267,14 +335,15 @@ def lm_logits(cfg: ArchConfig, params, x: torch.Tensor) -> torch.Tensor:
             else params["lm_head"]
     else:
         specs = tp_specs(cfg, ctx.size)
-        x = rmsnorm(x, actx.gather_leaf(
-            params["final_norm"], actx.model_dim(specs["final_norm"])),
+        x = rmsnorm(x, actx.seq_leaf(actx.gather_leaf(
+            params["final_norm"], actx.model_dim(specs["final_norm"]))),
             cfg.norm_eps)
         dim, split = _head_dim(cfg, ctx.size)
         leaf = params["embed"] if cfg.tie_embeddings else params["lm_head"]
         if split:
-            x = actx.copy_in(x)
+            x = actx.block_in(x)
         else:
+            x = actx.seq_whole(x)
             leaf = actx.gather_leaf(leaf, dim)
         head = leaf.t() if cfg.tie_embeddings else leaf
     return torch.einsum("bsd,dv->bsv", x.float(),
@@ -325,7 +394,8 @@ def attn_stack(cfg: ArchConfig, stacked, x, positions, sinks=None, *,
                                                 kv_caches[1][i])
         h, kv = attention_block(
             lp["attn"], cfg,
-            actx.copy_in(rmsnorm(x, lp["ln_attn"], cfg.norm_eps)),
+            actx.block_in(rmsnorm(x, actx.seq_leaf(lp["ln_attn"]),
+                                  cfg.norm_eps)),
             positions, window=windows[i], kv_cache=cache,
             cache_index=cache_index)
         if collect_kv:
@@ -336,12 +406,12 @@ def attn_stack(cfg: ArchConfig, stacked, x, positions, sinks=None, *,
             kvs[0][i].copy_(kv[0])
             kvs[1][i].copy_(kv[1])
         x = x + h
-        y = rmsnorm(x, lp["ln_mlp"], cfg.norm_eps)
+        y = rmsnorm(x, actx.seq_leaf(lp["ln_mlp"]), cfg.norm_eps)
         if cfg.is_moe:
-            out, a = MOE.moe_block(lp["moe"], cfg, y)
+            out, a = MOE.moe_block(lp["moe"], cfg, actx.seq_whole(y))
             aux = aux + a
         else:
-            out = mlp_block(lp["mlp"], actx.copy_in(y))
+            out = mlp_block(lp["mlp"], actx.block_in(y))
         x = x + out
     return x, aux, kvs
 
@@ -356,28 +426,33 @@ def _shared_attn(cfg: ArchConfig, sp, x, positions, cache=None,
     with torch.profiler.record_function("shared_attention"):
         h, kv = attention_block(
             sp["attn"], cfg,
-            actx.copy_in(rmsnorm(x, sp["ln_attn"], cfg.norm_eps)),
+            actx.block_in(rmsnorm(x, actx.seq_leaf(sp["ln_attn"]),
+                                  cfg.norm_eps)),
             positions, window=cfg.sliding_window, kv_cache=cache,
             cache_index=cache_index)
     x = x + h
-    return x + mlp_block(sp["mlp"], actx.copy_in(
-        rmsnorm(x, sp["ln_mlp"], cfg.norm_eps))), kv
+    return x + mlp_block(sp["mlp"], actx.block_in(
+        rmsnorm(x, actx.seq_leaf(sp["ln_mlp"]), cfg.norm_eps))), kv
 
 
 def _ssm_layer(cfg: ArchConfig, lp, x, st):
     """One Mamba2 or RWKV6 layer with its residual: ``(x, new state)``.
     The RWKV6 block applies its own pre-norms; under autograd it runs
-    under ``checkpoint``."""
+    under ``checkpoint``.  Under sequence parallelism the block runs on
+    the whole sequence and the residual takes this rank's positions of
+    its output."""
+    xin = actx.seq_whole(x)
     if cfg.block_type == BLOCK_RWKV6:
         if torch.is_grad_enabled():
-            h, new_st = checkpoint(R6.rwkv6_block, lp, cfg, x, st,
+            h, new_st = checkpoint(R6.rwkv6_block, lp, cfg, xin, st,
                                    use_reentrant=False)
         else:
-            h, new_st = R6.rwkv6_block(lp, cfg, x, st)
-        return x + h, new_st
-    h, new_st = M2.mamba2_block(lp["mamba"], cfg,
-                                rmsnorm(x, lp["ln"], cfg.norm_eps), state=st)
-    return x + h, new_st
+            h, new_st = R6.rwkv6_block(lp, cfg, xin, st)
+    else:
+        h, new_st = M2.mamba2_block(lp["mamba"], cfg,
+                                    rmsnorm(xin, lp["ln"], cfg.norm_eps),
+                                    state=st)
+    return x + (actx.split_seq(h) if actx.seq_parallel() else h), new_st
 
 
 def ssm_stack(cfg: ArchConfig, params, x, positions, sinks=None, *,
@@ -438,6 +513,12 @@ def ssm_stack(cfg: ArchConfig, params, x, positions, sinks=None, *,
     return x, sts, kvs
 
 
+def _seq_len(x: torch.Tensor) -> int:
+    """The sequence length of the residual stream ``x`` (under sequence
+    parallelism, this rank's positions times the group's size)."""
+    return x.shape[1] * (actx.current().size if actx.seq_parallel() else 1)
+
+
 def forward(cfg: ArchConfig, params, batch: dict, layer_sinks=None):
     """Training forward: returns (logits (B, S, V) f32, aux_loss).
     ``layer_sinks`` (a tree like ``params["layers"]``) receives the layer
@@ -447,8 +528,11 @@ def forward(cfg: ArchConfig, params, batch: dict, layer_sinks=None):
     ctx = actx.current()
     if ctx is not None:
         check_tensor_parallel(cfg, ctx.size)
+        if actx.seq_parallel():
+            check_sequence_parallel(cfg, ctx.size,
+                                    batch["tokens"].shape[1])
     x = embed_input(cfg, params, batch)
-    positions = torch.arange(x.shape[1], device=x.device)
+    positions = torch.arange(_seq_len(x), device=x.device)
     if cfg.block_type != BLOCK_ATTN:
         x, _, _ = ssm_stack(cfg, params, x, positions, layer_sinks)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -469,18 +553,24 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_len: int,
     RWKV6 stacks: ``{"pos": 0, "state": {...}}`` of zeros stacked over
     layers (the dtypes of the block's own initial state), and with a
     shared attention block ``"attn_kv"``, each (n_seg, B, max_len, K,
-    D)."""
+    D).  Under a model group the heads are this rank's
+    (:func:`local_kv_heads`; the Mamba2 and RWKV6 states' heads and
+    ``dinner`` its shares)."""
+    ctx = actx.current()
+    nk = cfg.n_kv_heads if ctx is None \
+        else local_kv_heads(cfg, ctx.size)
+
     def kv(n):
-        shape = (n, batch_size, max_len, cfg.n_kv_heads,
-                 cfg.resolved_head_dim)
+        shape = (n, batch_size, max_len, nk, cfg.resolved_head_dim)
         return tuple(torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device)
                      for _ in range(2))
 
     if cfg.block_type == BLOCK_ATTN:
         return {"pos": 0, "kv": kv(cfg.n_layers)}
-    init = (R6.rwkv6_init_state(cfg, batch_size, device)
+    m = 1 if ctx is None else ctx.size
+    init = (R6.rwkv6_init_state(cfg, batch_size, device, model=m)
             if cfg.block_type == BLOCK_RWKV6
-            else M2.mamba2_init_state(cfg, batch_size, device))
+            else M2.mamba2_init_state(cfg, batch_size, device, model=m))
     cache = {"pos": 0, "state": {
         k: torch.zeros((cfg.n_layers, *a.shape), dtype=a.dtype,
                        device=device) for k, a in init.items()}}
@@ -496,7 +586,7 @@ def prefill(cfg: ArchConfig, params, batch: dict, max_len: int):
     and SSM states f32, and its shared block's caches; the RWKV6 stack:
     its per-layer states, all f32)."""
     x = embed_input(cfg, params, batch)
-    s = x.shape[1]
+    s = _seq_len(x)
     positions = torch.arange(s, device=x.device)
     if cfg.block_type != BLOCK_ATTN:
         x, states, kvs = ssm_stack(cfg, params, x, positions,
@@ -504,9 +594,10 @@ def prefill(cfg: ArchConfig, params, batch: dict, max_len: int):
         cache = {"pos": s, "state": states}
         if cfg.shared_attn_every:
             cache["attn_kv"] = kvs
-        return lm_logits(cfg, params, x[:, -1:]), cache
+        return lm_logits(cfg, params, actx.seq_whole(x)[:, -1:]), cache
     x, _, kvs = attn_stack(cfg, params["layers"], x, positions,
                            collect_kv=True)
+    x = actx.seq_whole(x)
     kv = tuple(F.pad(a, (0, 0, 0, 0, 0, max_len - s)).to(COMPUTE_DTYPE)
                for a in kvs)
     return lm_logits(cfg, params, x[:, -1:]), {"pos": s, "kv": kv}
@@ -517,7 +608,7 @@ def decode_step(cfg: ArchConfig, params, cache: dict, tokens):
     cache's tensors are updated in place.  Returns (logits (B, 1, V),
     new_cache)."""
     pos = cache["pos"]
-    x = params["embed"][tokens.long()].to(COMPUTE_DTYPE)
+    x = embed_input(cfg, params, {"tokens": tokens})
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.long,
                            device=x.device)
     if cfg.block_type != BLOCK_ATTN:

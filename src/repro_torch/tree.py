@@ -7,6 +7,7 @@ worker columns are per worker, the rings and payloads per leaf), so leaf
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable
 
 
@@ -56,3 +57,20 @@ def tree_map(fn: Callable, tree, *rest):
     flat, td = flatten(tree)
     others = [flatten(r)[0] for r in rest]
     return unflatten(td, [fn(*xs) for xs in zip(flat, *others)])
+
+
+def tensors(obj):
+    """Every tensor of ``obj`` — a tensor, or dicts, lists, tuples and
+    dataclass instances of them — in order."""
+    import torch
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            yield from tensors(v)
+    elif isinstance(obj, (list, tuple)):
+        for v in obj:
+            yield from tensors(v)
+    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        for f in dataclasses.fields(obj):
+            yield from tensors(getattr(obj, f.name))

@@ -246,9 +246,12 @@ def test_port_matches_the_reference_on_a_data_model_grid(runs, arch, kind):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch,m,what,why", [
-    # 4 experts (and heads); 4 ssm heads; RWKV6's 8 heads of 16 channels:
-    # at 16 shards the reference would cut dinner (128) inside a head
-    (MIXTRAL, 8, "experts 4", "layers/moe/w_gate"),
+    # 4 heads (8 shards: the 4 experts fall back to their ff, which 8
+    # divides); 4 experts that neither 3 nor their ff (256) divide; 4 ssm
+    # heads; RWKV6's 8 heads of 16 channels: at 16 shards the reference
+    # would cut dinner (128) inside a head
+    (MIXTRAL, 8, "heads 4", "layers/attn/wq"),
+    (MIXTRAL, 3, "experts 4", "layers/moe/w_gate"),
     (ZAMBA2, 8, "heads 4", "layers/mamba/a_log"),
     (RWKV6, 16, "heads 8", "cut an RWKV6 head")])
 def test_shards_that_cut_experts_or_heads_are_refused(no_rank, arch, m,
