@@ -44,6 +44,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import trace
 from repro_torch import tree as T
 from repro_torch.dist.workers import WorkerGroup, WorkerSum, as_group
 from repro_torch.kernels.cr_reduce import ops as CR
@@ -400,28 +401,32 @@ def sync_gradients(cfg: SyncConfig, worker_grads, state: dict, specs=None,
         for grads in worker_grads:
             flat_g, td = T.flatten(grads)
             del grads
-            for i, g in enumerate(flat_g):
-                payload, _ = ef_compress_leaf_compact(
-                    g, per_worker[i][n], flat_s[i], method, cfg.topk_ratio)
-                payloads[i].append(payload)
-                flat_g[i] = None
+            with trace.span("step.compress"):
+                for i, g in enumerate(flat_g):
+                    payload, _ = ef_compress_leaf_compact(
+                        g, per_worker[i][n], flat_s[i], method,
+                        cfg.topk_ratio)
+                    payloads[i].append(payload)
+                    flat_g[i] = None
             del flat_g
             n += 1
         _check_workers(n, n_local)
         synced = []
-        for i, err in enumerate(per_worker):
-            _, r, perm, tshape = leaf_rows_geometry(tuple(err.shape[1:]),
-                                                    flat_s[i])
-            if method == "topk":
-                synced.append(_leaf_topk_sync(group, payloads[i], r, perm,
-                                              tshape))
-            else:
-                synced.append(_leaf_onebit_sync(group, payloads[i], perm,
-                                                tshape))
-            payloads[i] = None
-        gap2 = (_gap2((group.pmean(list(e)) for e in per_worker), device,
-                      sharded)
-                if cfg.track_gap else torch.zeros((), device=device))
+        with trace.span("step.deliver"):
+            for i, err in enumerate(per_worker):
+                _, r, perm, tshape = leaf_rows_geometry(
+                    tuple(err.shape[1:]), flat_s[i])
+                if method == "topk":
+                    synced.append(_leaf_topk_sync(group, payloads[i], r,
+                                                  perm, tshape))
+                else:
+                    synced.append(_leaf_onebit_sync(group, payloads[i],
+                                                    perm, tshape))
+                payloads[i] = None
+        with trace.span("step.gap"):
+            gap2 = (_gap2((group.pmean(list(e)) for e in per_worker),
+                          device, sharded)
+                    if cfg.track_gap else torch.zeros((), device=device))
         state["step"] = step + 1
         return T.unflatten(td, synced), state, {"gap2_over_alpha2": gap2}
 

@@ -60,6 +60,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch import tree as T
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import delivery as DLV
@@ -220,29 +221,40 @@ class AsyncTrainStep:
             losses.append(loss)
             if acfg.skip_nonfinite:
                 # a poisoned worker transmits zeros (read on the host
-                # once; the gradient leaves are zeroed in place)
-                finite = bool(tree_all_finite(flat_g))
+                # once; the gradient leaves are zeroed in place), outside
+                # the phase spans, with its host reads named
+                with trace.span("wait.finite"):
+                    finite = bool(tree_all_finite(flat_g))
                 if actx.current() is not None:
                     # the worker's decision, over its model shards
-                    finite = actx.current().group_all(finite, device)
+                    with trace.span("wait.finite_group"):
+                        finite = actx.current().group_all(finite, device)
                 if not finite:
                     for g in flat_g:
                         g.zero_()
-                bad.append(torch.tensor(0.0 if finite else 1.0,
-                                        device=device))
-            for i, g in enumerate(flat_g):
-                if acfg.track_gap:
-                    fresh[i].add(g.float())
-                err = errs[i][w] if acfg.has_err else None
-                if acfg.fused:
-                    payload, _ = ef_compress_leaf_compact(
-                        g, err, flat_s[i], acfg.compressor, acfg.topk_ratio)
-                    payloads[i].append(payload)
-                else:
+                with trace.span("wait.finite_flag"):
+                    bad.append(torch.tensor(0.0 if finite else 1.0,
+                                            device=device))
+            if acfg.track_gap:
+                with trace.span("step.gap"):
+                    for i, g in enumerate(flat_g):
+                        fresh[i].add(g.float())
+            if acfg.fused:
+                with trace.span("step.compress"):
+                    for i, g in enumerate(flat_g):
+                        err = errs[i][w] if acfg.has_err else None
+                        payload, _ = ef_compress_leaf_compact(
+                            g, err, flat_s[i], acfg.compressor,
+                            acfg.topk_ratio)
+                        payloads[i].append(payload)
+                        flat_g[i] = None
+            else:
+                for i, g in enumerate(flat_g):
+                    err = errs[i][w] if acfg.has_err else None
                     mine[i].add(self._densified_leaf(
                         bufs[i][w], g, err, flat_s[i], step,
                         int(d_eff[gw]), float(alive[gw])))
-                flat_g[i] = None
+                    flat_g[i] = None
             del flat_g
         if len(losses) != group.n_local:
             raise ValueError(f"got gradients of {len(losses)} workers, "
@@ -251,24 +263,27 @@ class AsyncTrainStep:
         if acfg.fused:
             synced = self._fused_delivery(state, payloads, step, tab)
         else:
-            synced = []
-            for i in range(len(mine)):
-                synced.append(mine[i].mean())
-                mine[i] = None
-            if acfg.crash_subst:
-                s = float(crash_subst_scale(tab, step, cap))
-                synced = [x * s for x in synced]
+            with trace.span("step.deliver"):
+                synced = []
+                for i in range(len(mine)):
+                    synced.append(mine[i].mean())
+                    mine[i] = None
+                if acfg.crash_subst:
+                    s = float(crash_subst_scale(tab, step, cap))
+                    synced = [x * s for x in synced]
         del payloads, mine
 
         gap2 = torch.zeros((), device=device)
         if acfg.track_gap:
-            squares = _Squares(device, model_sharded(self.specs))
-            for i in range(len(synced)):
-                total = fresh[i].total()
-                fresh[i] = None
-                squares.add(i, torch.sum(torch.square(synced[i] - total / n)))
-                del total
-            gap2 = squares.total()
+            with trace.span("step.gap"):
+                squares = _Squares(device, model_sharded(self.specs))
+                for i in range(len(synced)):
+                    total = fresh[i].total()
+                    fresh[i] = None
+                    squares.add(i, torch.sum(torch.square(synced[i]
+                                                          - total / n)))
+                    del total
+                gap2 = squares.total()
         _, opt_state, _ = guarded_update(self.opt, synced, opt_state, flat_p,
                                          skip_nonfinite=acfg.skip_nonfinite)
         state["step"] = step + 1
@@ -288,53 +303,61 @@ class AsyncTrainStep:
         deposit the fresh payload ``d`` steps ahead, take the own slot;
         returns what reaches the model from this worker now."""
         acfg, cap = self.acfg, self.acfg.capacity
-        prior, _ = DLV.ring_take(ring, step % cap)
+        with trace.span("step.deliver"):
+            prior, _ = DLV.ring_take(ring, step % cap)
         if acfg.compressor != "none":
-            payload, new_err = ef_compress_leaf(g, err, spec, acfg.compressor,
-                                                acfg.topk_ratio)
-            if err is not None:
-                err.copy_(new_err)
-            del new_err
+            with trace.span("step.compress"):
+                payload, new_err = ef_compress_leaf(
+                    g, err, spec, acfg.compressor, acfg.topk_ratio)
+                if err is not None:
+                    err.copy_(new_err)
+                del new_err
         else:
             payload = g.float()
-        DLV.ring_deposit(ring, (step + d) % cap, payload * alive)
-        own, _ = DLV.ring_take(ring, step % cap)
-        return prior + own
+        with trace.span("step.deliver"):
+            DLV.ring_deposit(ring, (step + d) % cap, payload * alive)
+            own, _ = DLV.ring_take(ring, step % cap)
+            return prior + own
 
     def _fused_delivery(self, state, payloads, step, tab):
         """Gather every worker's message, deposit each into its slot and
-        take slot ``t % cap``; returns the applied mean per leaf."""
-        acfg, n, cap = self.acfg, self.n, self.acfg.capacity
-        accs = T.leaves(state["acc"])
-        device = accs[0].device
-        w_live, slots = DLV.delivery_plan(tab, step, cap)
-        w_live = torch.as_tensor(w_live).to(device)
-        slots = torch.as_tensor(slots).to(device)
-        scale = np.float32(1.0) / np.float32(n)
-        if acfg.crash_subst:
-            scale = np.float32(scale * crash_subst_scale(tab, step, cap))
-        now = step % cap
-        synced = []
-        for i, acc in enumerate(accs):
-            prior = acc[now].clone()
-            acc[now].zero_()
-            gathered = {key: self.group.all_gather([p[key]
-                                                    for p in payloads[i]])
-                        for key in payloads[i][0]}
-            payloads[i] = None
-            if acfg.compressor == "topk":
-                CR.topk_deposit(acc, gathered["vals"], gathered["idx"],
-                                slots, w_live)
-            else:
-                CR.onebit_deposit(acc, gathered["pos"], gathered["means"],
-                                  slots, w_live)
-            del gathered
-            delivered = prior.add_(acc[now])
-            acc[now].zero_()
-            _, _, perm, tshape = self._geoms[i]
-            synced.append(_from_rows(delivered.mul_(float(scale)), perm,
-                                     tshape))
-        return synced
+        take slot ``t % cap``; returns the applied mean per leaf (in a
+        ``step.deliver`` span)."""
+        with trace.span("step.deliver"):
+            acfg, n, cap = self.acfg, self.n, self.acfg.capacity
+            accs = T.leaves(state["acc"])
+            device = accs[0].device
+            w_live, slots = DLV.delivery_plan(tab, step, cap)
+            # each a copy from pageable host memory: it waits for the stream
+            with trace.span("wait.delivery_plan"):
+                w_live = torch.as_tensor(w_live).to(device)
+            with trace.span("wait.delivery_plan"):
+                slots = torch.as_tensor(slots).to(device)
+            scale = np.float32(1.0) / np.float32(n)
+            if acfg.crash_subst:
+                scale = np.float32(scale
+                                   * crash_subst_scale(tab, step, cap))
+            now = step % cap
+            synced = []
+            for i, acc in enumerate(accs):
+                prior = acc[now].clone()
+                acc[now].zero_()
+                gathered = {key: self.group.all_gather(
+                    [p[key] for p in payloads[i]]) for key in payloads[i][0]}
+                payloads[i] = None
+                if acfg.compressor == "topk":
+                    CR.topk_deposit(acc, gathered["vals"], gathered["idx"],
+                                    slots, w_live)
+                else:
+                    CR.onebit_deposit(acc, gathered["pos"],
+                                      gathered["means"], slots, w_live)
+                del gathered
+                delivered = prior.add_(acc[now])
+                acc[now].zero_()
+                _, _, perm, tshape = self._geoms[i]
+                synced.append(_from_rows(delivered.mul_(float(scale)),
+                                         perm, tshape))
+            return synced
 
 
 def make_async_train_step(cfg: ArchConfig, opt, acfg: AsyncConfig, workers,

@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import trace
 from repro_torch import tree as T
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.scheduler import (SyncConfig, init_sync_state,
@@ -60,25 +61,30 @@ def _grads(cfg: ArchConfig, params, batch: dict):
     """Loss + gradient tree of one batch in one backward pass: ``(loss,
     parts, grads)``.  The layer leaves' gradients land in fresh sinks (one
     buffer per stacked leaf, filled a layer at a time); the other leaves'
-    come from ``backward``."""
+    come from ``backward``.  The forward runs in a ``step.forward`` span
+    and the backward, with the gradients' collection, in a
+    ``step.backward`` span (autograd launches its kernels from its own
+    thread, inside the span's host interval)."""
     flat_p, td = T.flatten(params)
-    sinks = T.tree_map(torch.zeros_like, params["layers"])
-    for p in flat_p:
-        p.requires_grad_(True)
-        p.grad = None
-    loss, parts = loss_fn(cfg, params, batch, sinks)
-    loss.backward()
-    layer_ids = {id(p) for p in T.leaves(params["layers"])}
-    sink_of = dict(zip((id(p) for p in T.leaves(params["layers"])),
-                       T.leaves(sinks)))
-    grads = []
-    for p in flat_p:
-        if id(p) in layer_ids:
-            grads.append(sink_of[id(p)])
-        else:
-            grads.append(p.grad if p.grad is not None
-                         else torch.zeros_like(p))
+    with trace.span("step.forward"):
+        sinks = T.tree_map(torch.zeros_like, params["layers"])
+        for p in flat_p:
+            p.requires_grad_(True)
             p.grad = None
+        loss, parts = loss_fn(cfg, params, batch, sinks)
+    with trace.span("step.backward"):
+        loss.backward()
+        layer_ids = {id(p) for p in T.leaves(params["layers"])}
+        sink_of = dict(zip((id(p) for p in T.leaves(params["layers"])),
+                           T.leaves(sinks)))
+        grads = []
+        for p in flat_p:
+            if id(p) in layer_ids:
+                grads.append(sink_of[id(p)])
+            else:
+                grads.append(p.grad if p.grad is not None
+                             else torch.zeros_like(p))
+                p.grad = None
     return loss.detach(), parts, T.unflatten(td, grads)
 
 
@@ -151,17 +157,21 @@ def guarded_update(opt, grads, opt_state, params, *, skip_nonfinite: bool):
     leaf does.  The guard reads the finiteness flag on the host once and
     then either applies the update or skips it, so it keeps no copy of any
     leaf.  Returns ``(params, opt_state, nonfinite)``; with the guard off
-    no finiteness reduction runs."""
+    no finiteness reduction runs.  The update runs in a ``step.update``
+    span; the guard, before it, in none but its host reads' ``wait.*``."""
     if skip_nonfinite:
-        finite = bool(tree_all_finite(grads))
+        with trace.span("wait.finite"):
+            finite = bool(tree_all_finite(grads))
         ctx = actx.current()
         if ctx is not None:
-            finite = ctx.world_all(finite, grads[0].device)
+            with trace.span("wait.finite_world"):
+                finite = ctx.world_all(finite, grads[0].device)
         if not finite:
             return params, opt_state, torch.ones((), device=params[0].device)
-    updates, opt_state = opt.update(grads, opt_state, params)
-    apply_updates(params, updates)
-    return params, opt_state, torch.zeros((), device=params[0].device)
+    with trace.span("step.update"):
+        updates, opt_state = opt.update(grads, opt_state, params)
+        apply_updates(params, updates)
+        return params, opt_state, torch.zeros((), device=params[0].device)
 
 
 def make_train_step(cfg: ArchConfig, opt, grad_accum: int = 1, *,

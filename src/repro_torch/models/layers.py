@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import trace
 from repro_torch.models import actx
 from repro_torch.models.params import ParamDef
 
@@ -53,8 +54,11 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6, *,
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), exps)
+    # a host scalar copied to a card from pageable memory: the copy waits
+    # for the stream
+    with trace.span("wait.rope_theta"):
+        base = torch.tensor(theta, dtype=torch.float32, device=device)
+    return 1.0 / torch.pow(base, exps)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

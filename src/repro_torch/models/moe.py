@@ -33,6 +33,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import trace
 from repro_torch.models import actx
 from repro_torch.models.params import ParamDef
 
@@ -113,7 +114,7 @@ def moe_block(params, cfg, x: torch.Tensor):
     groups = tokens.reshape(n // gsz, gsz, d)
 
     # the profiler's "moe_dispatch" range: routing and the dispatch product
-    with torch.profiler.record_function("moe_dispatch"):
+    with trace.span("moe_dispatch"):
         logits = torch.einsum("gtd,de->gte", groups,
                               params["router"].to(dt))
         cap = capacity(gsz, k, e, cfg.capacity_factor)

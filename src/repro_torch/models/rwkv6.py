@@ -36,6 +36,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import trace
 from repro_torch.models import actx
 from repro_torch.models.layers import rmsnorm
 from repro_torch.models.params import ParamDef
@@ -96,7 +97,7 @@ def wkv6_chunked(r, k, v, log_w, u, state0=None):
     mask = torch.tril(torch.ones((c, c), dtype=torch.bool, device=r.device),
                       diagonal=-1)[None, :, :, None, None]
     outs = []
-    with torch.profiler.record_function("wkv6_chunked"):
+    with trace.span("wkv6_chunked"):
         for i in range(0, t, c):
             rc, kc, vc, wc = (a[:, i:i + c].float()
                               for a in (r, k, v, log_w))

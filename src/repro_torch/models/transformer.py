@@ -67,6 +67,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import (BLOCK_ATTN, BLOCK_MAMBA2, BLOCK_RWKV6,
                                       FRONTEND_AUDIO, FRONTEND_VISION,
                                       ArchConfig)
+from repro_torch import trace
 from repro_torch import tree as T
 from repro_torch.models import actx
 from repro_torch.models import mamba2 as M2
@@ -423,7 +424,7 @@ def _shared_attn(cfg: ArchConfig, sp, x, positions, cache=None,
     The attention runs inside a ``shared_attention`` profiler range.
     Under a model group ``sp`` is :func:`_tp_layer`'s, and the attention
     and the MLP take their inputs through ``copy_in``."""
-    with torch.profiler.record_function("shared_attention"):
+    with trace.span("shared_attention"):
         h, kv = attention_block(
             sp["attn"], cfg,
             actx.block_in(rmsnorm(x, actx.seq_leaf(sp["ln_attn"]),

@@ -22,6 +22,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import trace
+
 
 class Optimizer(NamedTuple):
     init: Callable
@@ -87,8 +89,13 @@ def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
               for b in (b1, b2)]
         a = _lr_at(lr, state["count"])
         # divisors as device tensors: CUDA turns division by a host scalar
-        # into a product with its reciprocal
-        bc1, bc2 = (torch.tensor(x, device=ms[0].device) for x in bc)
+        # into a product with its reciprocal; each copy from pageable host
+        # memory waits for the stream
+        divisors = []
+        for x in bc:
+            with trace.span("wait.bias_correction"):
+                divisors.append(torch.tensor(x, device=ms[0].device))
+        bc1, bc2 = divisors
         updates = []
         for i, (m, v) in enumerate(zip(ms, vs)):
             upd = (m / bc1) / (torch.sqrt(v / bc2) + eps)

@@ -36,6 +36,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch import tree as T
 from repro_torch.configs.base import BLOCK_ATTN, FRONTEND_NONE, ArchConfig
 from repro_torch.kernels.swa_attention import ops as SWA
@@ -73,7 +74,7 @@ def _attend_full(cfg, q, kp, vp, table, pos, positions, dt):
     r = q.shape[0]
     hd = cfg.resolved_head_dim
     nk = cfg.n_kv_heads
-    with torch.profiler.record_function("attend_full"):
+    with trace.span("attend_full"):
         keys = PC.gather_all(kp, table).to(dt)
         vals = PC.gather_all(vp, table).to(dt)
         k_pos = torch.arange(keys.shape[1], device=q.device)[None]
